@@ -1,0 +1,128 @@
+"""Build and bind the hand-written CUDA kernels of csrc/.
+
+All csrc/*.cu files are compiled by nvcc for sm_90a into ONE shared
+library with a plain C interface, loaded with ctypes (no PyTorch headers:
+seconds to build, not minutes).  The library lands in build/ under a name
+that carries the hash of the sources and flags, so an edited kernel is
+rebuilt on its first use and an unchanged one is reused.  Nothing is built
+or loaded at import: the first CUDA launch calls load().
+
+Every entry point takes device pointers and the CUDA stream as c_void_p,
+sizes as c_int, launches on that stream without synchronising, and returns
+cudaGetLastError(); launch() raises when that is not cudaSuccess.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# entry point -> argtypes (pointers and the stream as c_void_p, ints c_int)
+_SIGNATURES = {
+    # bases, lengths, hash_ids, out, n, maxlen, k, f, mode, stream
+    "hrm_minhash_sigs": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # cand, ids, counts, num_kept, f, n, c, min_hits, out_cap, stream
+    "hrm_vote": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # a_hi, a_lo, r_hi, r_lo, mask, bounds, out, p, wa, wr, n_shifts, stream
+    "hrm_shd_best": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+                  + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"libhrm_kernels_{h.hexdigest()[:16]}.so")
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH, /usr/local/cuda/bin): the "
+                       "CUDA kernels cannot be built")
+
+
+def build(verbose: bool = False) -> str:
+    """Compile csrc/*.cu unless the library for these sources exists."""
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.tmp{os.getpid()}"
+    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+           "-o", tmp, *[s for s in sources() if s.endswith(".cu")]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    if verbose:
+        print(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use (thread-safe)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.hrm_cuda_error_string.argtypes = [_I]
+            lib.hrm_cuda_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call one C entry point; raise on a non-zero cudaError_t."""
+    lib = load()
+    rc = getattr(lib, name)(*args)
+    if rc != 0:
+        msg = lib.hrm_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of t's device, as a c_void_p value."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Kernel inputs must be contiguous and on one CUDA device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{name}: all inputs must be on one CUDA "
+                             f"device (got {t.device} and {dev})")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")

@@ -1,0 +1,178 @@
+"""End-to-end driver: STEP 1 coarse map -> STEP 2 SAM -> STEP 3 VCF
+(counterpart of hashreadmapper_tpu/pipeline/driver.py).
+
+STEP 1 runs on the port's CoarseMapper (on opts' device); STEP 2 and 3
+are the JAX package's shared host code: mapping.run_cssw on its native
+SSW host path (opts.step2_device is set to False here, so that path is
+chosen, not fallen into), then the SAM and VCF writers.
+"""
+
+from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Optional
+
+import numpy as np
+
+from hashreadmapper_tpu.config import MapperType, ProgramOptions, \
+    SequencePairType
+from hashreadmapper_tpu.io.genome import Genome
+from hashreadmapper_tpu.io.readstore import ReadStorage
+from hashreadmapper_tpu.pipeline import mapping
+from hashreadmapper_tpu.utils.progress import ProgressReporter
+
+from ..utils.timers import PhaseTimers
+from .engine import CoarseMapper, CoarseResults
+
+
+class _StringCachedGenome(Genome):
+    """A Genome whose sequence_str decodes each chromosome once.
+
+    The shared host STEP 2 (mapping._window_views) asks for the whole
+    decoded chromosome of every read, which made it linear in the
+    chromosome length per read; the cached string is the same value, so
+    the output is unchanged."""
+
+    def sequence_str(self, chrom_id: int) -> str:
+        s = self._strings.get(chrom_id)
+        if s is None:
+            s = self._strings[chrom_id] = super().sequence_str(chrom_id)
+        return s
+
+
+def with_string_cache(genome: Genome) -> Genome:
+    """A view of `genome` (arrays shared) with sequence_str cached."""
+    cached = _StringCachedGenome.__new__(_StringCachedGenome)
+    cached.__dict__.update(genome.__dict__)
+    cached._strings = {}
+    return cached
+
+
+def _pipelined_sw(mapper: CoarseMapper, bases: np.ndarray,
+                  reads: ReadStorage, genome: Genome, genome_rc: Genome,
+                  opts: ProgramOptions):
+    """Chunked coarse map on the device + host STEP 2 on two workers: the
+    workers fine-align chunk i while the main thread maps chunk i+1.
+    Returns (results, AlignerArguments with global read ids)."""
+    n = reads.num_reads
+    chunk = opts.step2_pipeline_chunk
+    progress = ProgressReporter(n, label="reads mapped+aligned",
+                                enabled=opts.show_progress)
+    res_parts, futs = [], []
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        for c0 in range(0, n, chunk):
+            c1 = min(c0 + chunk, n)
+            res = mapper.map_reads(bases[c0:c1], reads.lengths[c0:c1])
+            res_parts.append(res)
+            futs.append((c0, c1, ex.submit(
+                mapping.run_cssw, genome, genome_rc, res.orientation,
+                res.position, res.chromosome_id, reads.slice_rows(c0, c1),
+                opts, res.bs_strand)))
+        mappingout = []
+        for c0, c1, fut in futs:
+            # read ids in a chunk's AlignerArguments are chunk-local
+            for aa in fut.result():
+                aa.read_id += c0
+                mappingout.append(aa)
+            progress.add(c1 - c0)
+    if opts.show_progress:
+        progress.finish()
+    stats: Dict[str, int] = {}
+    for r in res_parts:
+        for k, v in r.stats.items():
+            stats[k] = stats.get(k, 0) + v
+    cat = lambda field: np.concatenate([getattr(r, field) for r in res_parts])
+    results = CoarseResults(
+        orientation=cat("orientation"), hamming=cat("hamming"),
+        shift=cat("shift"), chromosome_id=cat("chromosome_id"),
+        position=cat("position"), global_window_id=cat("global_window_id"),
+        stats=stats, bs_strand=cat("bs_strand"))
+    return results, mappingout
+
+
+def run_pipeline(opts: ProgramOptions, device,
+                 reads: Optional[ReadStorage] = None,
+                 genome: Optional[Genome] = None) -> Dict:
+    """Read ingest, window index on `device`, coarse map, host STEP 2,
+    SAM and VCF; returns the JAX driver's result dict."""
+    opts.step2_device = False
+    timers = PhaseTimers()
+
+    with timers.phase("STEP1"):
+        with timers.phase("build_readstorage"):
+            if reads is None:
+                if opts.load_binary_reads_from:
+                    reads = ReadStorage.load(opts.load_binary_reads_from)
+                else:
+                    reads = ReadStorage.from_files(
+                        opts.inputfiles,
+                        paired=opts.pair_type == SequencePairType.PAIRED_END,
+                        quality_bits=(opts.quality_score_bits
+                                      if opts.use_quality_scores else 0))
+                if opts.save_binary_reads_to:
+                    reads.save(opts.save_binary_reads_to)
+        print(f"gpureadstorage: occupied memory: {reads.packed.nbytes}")
+        print(f"Reads: {reads.num_reads}")
+
+        if genome is None:
+            genome = Genome.from_fasta(opts.genomefile)
+        genome_rc = with_string_cache(genome.reverse_complement())
+        genome = with_string_cache(genome)
+
+        with timers.phase("build_minhasher"):
+            if opts.max_read_length < reads.sequence_length_upper_bound():
+                opts.max_read_length = reads.sequence_length_upper_bound()
+            mapper = CoarseMapper(genome, opts, device,
+                                  load_index_from=opts.load_hashtables_from)
+            if opts.save_hashtables_to:
+                mapper.save_index(opts.save_hashtables_to)
+            print(f"window index: {mapper.index.memory_bytes()} bytes, "
+                  f"{mapper.table.num_windows} windows")
+
+        pipelined = (opts.mapper_type == MapperType.SW
+                     and opts.step2_pipeline_chunk > 0
+                     and reads.num_reads > opts.step2_pipeline_chunk)
+        bases = reads.bases_matrix(opts.max_read_length).astype(np.int8)
+        with timers.phase("process genome"):
+            if pipelined:
+                results, mappingout = _pipelined_sw(
+                    mapper, bases, reads, genome, genome_rc, opts)
+            else:
+                results = mapper.map_reads(bases, reads.lengths)
+        n_mapped = int((results.orientation != 3).sum())
+        print(f"coarse mapped: {n_mapped}/{reads.num_reads} "
+              f"stats={results.stats}")
+
+    with timers.phase("process mapping"):
+        if opts.mapper_type == MapperType.STHELSE:
+            print("please implement your personal mapper")
+            timers.print_all()
+            return {"results": results, "mappingout": [], "sam_path": None,
+                    "vcf_path": None, "timers": timers.totals(),
+                    "reads": reads, "genome": genome, "mapper": mapper}
+        sam_path = opts.outputfile + ".SAM"
+        if opts.mapper_type == MapperType.SW:
+            if not pipelined:
+                mappingout = mapping.run_cssw(
+                    genome, genome_rc, results.orientation, results.position,
+                    results.chromosome_id, reads, opts, results.bs_strand)
+            sam_stats = mapping.print_to_sam(mappingout, genome, sam_path)
+        else:
+            from hashreadmapper_tpu.pipeline import mapping_edlib
+            mappingout = mapping_edlib.run_edlib(
+                genome, genome_rc, results.orientation, results.position,
+                results.chromosome_id, reads, opts)
+            sam_stats = mapping_edlib.print_to_edlib_sam(
+                mappingout, genome, sam_path)
+        print(f"mapped reads: {sam_stats['mapped']}")
+        print(f"unmapped reads: {sam_stats['unmapped']}")
+
+    with timers.phase("process variant calling"):
+        vcf_path = (mapping.do_vc(mappingout, genome, opts.outputfile)
+                    if opts.mapper_type == MapperType.SW else None)
+
+    timers.print_all()
+    return {"results": results, "mappingout": mappingout,
+            "sam_path": sam_path, "vcf_path": vcf_path,
+            "timers": timers.totals(), "reads": reads, "genome": genome,
+            "mapper": mapper}

@@ -1,0 +1,116 @@
+"""Port parity: murmur64, encode and minhash signatures (PyTorch plain
+versions on the CPU) against the JAX package, exact equality."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from hashreadmapper_tpu.ops import encode as jencode
+from hashreadmapper_tpu.ops import minhash as jminhash
+from hashreadmapper_tpu.ops import minhash_pallas
+from hashreadmapper_tpu.ops import u64 as ju64
+from hashreadmapper_tpu_torch.ops import encode, minhash, u64
+from hashreadmapper_tpu_torch.ops.minhash_kernel import (
+    sigs_from_bases, sigs_from_bases_plain)
+
+
+def _reads(seed, n=128, maxlen=40, k=16):
+    rng = np.random.default_rng(seed)
+    bases = rng.integers(0, 4, size=(n, maxlen), dtype=np.int8)
+    # lengths below k, exactly k, full, and past the padded width (clamped)
+    lengths = rng.integers(0, maxlen + 1, size=n).astype(np.int32)
+    lengths[:4] = [0, k - 1, k, maxlen + 7]
+    return bases, lengths
+
+
+def test_murmur64_edge_values():
+    vals = [0, 1, 2**32 - 1, 2**32, 2**33 + 5, 2**63, 2**63 - 1, 2**64 - 1,
+            0xDEADBEEFCAFEBABE, 0x00000001FFFFFFFF]
+    rng = np.random.default_rng(0)
+    vals += [int(v) for v in rng.integers(0, 2**63, size=64,
+                                          dtype=np.int64)]
+    vals += [v | (1 << 63) for v in vals[-8:]]
+    hi = torch.tensor([v >> 32 for v in vals], dtype=torch.int64)
+    lo = torch.tensor([v & 0xFFFFFFFF for v in vals], dtype=torch.int64)
+    h_hi, h_lo = u64.murmur64(hi, lo)
+    got = [(int(a) << 32) | int(b) for a, b in zip(h_hi, h_lo)]
+    assert got == [ju64.murmur64_py(v) for v in vals]
+
+
+def test_encode_matches_jax():
+    bases, lengths = _reads(1)
+    tb, tl = torch.from_numpy(bases), torch.from_numpy(lengths)
+    np.testing.assert_array_equal(
+        encode.revcomp_bases(tb, tl).numpy(),
+        np.asarray(jencode.revcomp_bases(jnp.asarray(bases),
+                                         jnp.asarray(lengths))))
+    np.testing.assert_array_equal(
+        encode.three_n_c_to_t(tb).numpy(),
+        np.asarray(jencode.three_n_c_to_t(jnp.asarray(bases))))
+    np.testing.assert_array_equal(
+        encode.three_n_g_to_a(tb).numpy(),
+        np.asarray(jencode.three_n_g_to_a(jnp.asarray(bases))))
+
+
+@pytest.mark.parametrize("k,mode", [(8, "fwd"), (12, "both"), (16, "canon"),
+                                    (16, "both"), (12, "fwd")])
+def test_sigs_from_bases_matches_pallas_interpret(k, mode):
+    bases, lengths = _reads(k, k=k)
+    hash_ids = np.array([0, 1, 7, 31, 63], dtype=np.uint32)
+    want = np.asarray(minhash_pallas.sigs_from_bases(
+        jnp.asarray(bases), jnp.asarray(lengths), k, jnp.asarray(hash_ids),
+        mode=mode, interpret=True))
+    got = sigs_from_bases_plain(torch.from_numpy(bases),
+                                torch.from_numpy(lengths), k,
+                                torch.from_numpy(hash_ids.astype(np.int64)),
+                                mode=mode)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
+@pytest.mark.parametrize("k,canonical", [(8, True), (12, False),
+                                         (16, True), (16, False)])
+def test_minhash_signatures_matches_jax(k, canonical):
+    bases, lengths = _reads(100 + k, n=64, k=k)
+    hash_ids = np.arange(8, dtype=np.uint32)
+    want_s, want_v = jminhash.minhash_signatures(
+        jnp.asarray(bases), jnp.asarray(lengths), k, jnp.asarray(hash_ids),
+        canonical=canonical)
+    got_s, got_v = minhash.minhash_signatures(
+        torch.from_numpy(bases), torch.from_numpy(lengths), k,
+        torch.from_numpy(hash_ids.astype(np.int64)), canonical=canonical)
+    np.testing.assert_array_equal(got_s.numpy(),
+                                  np.asarray(want_s).astype(np.int64))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+
+
+@pytest.mark.parametrize("k", [8, 12, 16])
+def test_signatures_3n_pair_matches_jax(k):
+    bases, lengths = _reads(200 + k, n=64, k=k)
+    # the JAX package's CPU path reverse-complements over the raw length;
+    # only its TPU path clamps it to the padded width, so stay inside it
+    lengths = np.minimum(lengths, bases.shape[1])
+    hash_ids = np.arange(6, dtype=np.uint32)
+    want_s, want_v = jminhash.signatures_3n_pair(
+        jnp.asarray(bases), jnp.asarray(lengths), k, jnp.asarray(hash_ids))
+    got_s, got_v = minhash.signatures_3n_pair(
+        torch.from_numpy(bases), torch.from_numpy(lengths), k,
+        torch.from_numpy(hash_ids.astype(np.int64)))
+    np.testing.assert_array_equal(got_s.numpy(),
+                                  np.asarray(want_s).astype(np.int64))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+
+
+def test_chunked_matches_jax_and_cpu_wrapper_launches_nothing():
+    bases, lengths = _reads(7, n=96)
+    hash_ids = np.arange(4, dtype=np.uint32)
+    want_s, _ = jminhash.minhash_signatures_chunked(
+        jnp.asarray(bases), jnp.asarray(lengths), 16, jnp.asarray(hash_ids),
+        32, canonical=False)
+    before = sigs_from_bases.launches
+    got_s, _ = minhash.minhash_signatures_chunked(
+        torch.from_numpy(bases), torch.from_numpy(lengths), 16,
+        torch.from_numpy(hash_ids.astype(np.int64)), 32, canonical=False)
+    np.testing.assert_array_equal(got_s.numpy(),
+                                  np.asarray(want_s).astype(np.int64))
+    assert sigs_from_bases.launches == before

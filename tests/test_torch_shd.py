@@ -1,0 +1,117 @@
+"""Port parity: bit-plane packing and SHD (plain PyTorch on the CPU)
+against the JAX package (Pallas shd_best in interpret mode), exact."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from hashreadmapper_tpu.ops import shd as jshd
+from hashreadmapper_tpu.ops import shd_pallas
+from hashreadmapper_tpu_torch.ops import shd
+from hashreadmapper_tpu_torch.ops.shd_kernel import (
+    BIG, pack_bitplanes, pack_genome_planes, shd_best, shd_best_plain)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def test_pack_bitplanes_and_genome_planes():
+    rng = np.random.default_rng(3)
+    bases = rng.integers(0, 4, size=(16, 70), dtype=np.int8)
+    lengths = rng.integers(0, 80, size=16).astype(np.int32)
+    for nwords in (2, 3, 4):
+        want = shd_pallas.pack_bitplanes(jnp.asarray(bases),
+                                         jnp.asarray(lengths), nwords)
+        got = pack_bitplanes(_t(bases), _t(lengths), nwords)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    genome = rng.integers(0, 4, size=1000, dtype=np.int8)
+    want = shd_pallas.pack_genome_planes(jnp.asarray(genome), chunk=256)
+    got = pack_genome_planes(_t(genome), chunk=256)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    for fn, jfn in ((shd.collapse_planes_ct, shd_pallas.collapse_planes_ct),
+                    (shd.collapse_planes_ga, shd_pallas.collapse_planes_ga)):
+        for g, w in zip(fn(*got), jfn(*want)):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _shd_inputs(seed, p=128, wr=2, n_shifts=64):
+    rng = np.random.default_rng(seed)
+    wa = (n_shifts - 1) // 32 + wr + 2
+    full = lambda *s: rng.integers(-2**31, 2**31, size=s, dtype=np.int64
+                                   ).astype(np.int32)
+    a_hi, a_lo = full(p, 2, wa), full(p, 2, wa)
+    r_hi, r_lo = full(p, 2, wr), full(p, 2, wr)
+    mask = full(p, wr)
+    lo = rng.integers(0, 40, size=p)
+    bounds = np.stack([lo, lo + rng.integers(-3, n_shifts, size=p)],
+                      axis=1).astype(np.int32)
+    bounds[:8] = -1                         # padded pairs
+    # ties: a periodic anchor (every shift by 32 repeats) and empty masks
+    a_hi[8:16] = a_hi[8:16, :, :1]
+    a_lo[8:16] = a_lo[8:16, :, :1]
+    mask[16:24] = 0
+    bounds[8:24] = [0, n_shifts - 1]
+    return (a_hi, a_lo, r_hi, r_lo, mask, bounds), n_shifts, wa, wr
+
+
+@pytest.mark.parametrize("seed,wr,n_shifts", [(0, 2, 64), (1, 3, 96),
+                                              (2, 4, 160)])
+def test_shd_best_matches_pallas_interpret(seed, wr, n_shifts):
+    args, n_shifts, wa, wr = _shd_inputs(seed, wr=wr, n_shifts=n_shifts)
+    want = np.asarray(shd_pallas.shd_best(
+        *[jnp.asarray(a) for a in args], n_shifts, wa, wr, interpret=True))
+    before = shd_best.launches
+    got = shd_best(*[_t(a) for a in args], n_shifts, wa, wr)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        shd_best_plain(*[_t(a) for a in args], n_shifts, wa, wr).numpy(),
+        want)
+    assert shd_best.launches == before
+    assert (want[:8, 0] == BIG).all()
+
+
+def test_extended_window_location_and_packed_planes():
+    rng = np.random.default_rng(11)
+    ws, lr, p = 64, 40, 96
+    genome = rng.integers(0, 4, size=3000, dtype=np.int8)
+    chrom_len = np.full(p, 3000, np.int32)
+    pos = rng.integers(0, 3000 - 10, size=p).astype(np.int32)
+    pos[:3] = [0, 3, 2990]
+    read_len = rng.integers(10, lr + 1, size=p).astype(np.int32)
+    jl = jshd.extended_window_location(jnp.asarray(pos),
+                                       jnp.asarray(chrom_len),
+                                       jnp.asarray(read_len), ws)
+    tl = shd.extended_window_location(_t(pos), _t(chrom_len), _t(read_len),
+                                      ws)
+    for g, w in zip(tl, jl):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+    # reads planted at the window starts, C->T converted
+    reads = np.zeros((p, lr), np.int8)
+    for i in range(p):
+        s = min(int(pos[i]), 3000 - lr)
+        reads[i] = genome[s:s + lr]
+    reads[(reads == 1) & (rng.random(reads.shape) < 0.9)] = 3
+    reads[::3] = 3 - reads[::3, ::-1]
+    g_hi, g_lo = shd_pallas.pack_genome_planes(jnp.asarray(genome))
+    params = jshd.ShdParams(ws, ws + lr, lr, 0.2)
+    jplanes = jshd.pack_read_planes(jnp.asarray(reads), jnp.asarray(read_len),
+                                    True)
+    tplanes = shd.pack_read_planes(_t(reads), _t(read_len), True)
+    for g, w in zip(tplanes, jplanes):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    valid = np.arange(p) % 7 != 0
+    want = jshd.shd_pairs_packed_planes(
+        g_hi, g_lo, jl.start, jl.length, jl.left, *jplanes,
+        jnp.asarray(read_len), jnp.asarray(valid), params, three_n=True)
+    got = shd.shd_pairs_packed_planes(
+        _t(g_hi), _t(g_lo), tl.start, tl.length, tl.left, *tplanes,
+        _t(read_len), _t(valid),
+        shd.ShdParams(ws, ws + lr, lr, 0.2), three_n=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert (np.asarray(want.orientation) != jshd.NONE).sum() > p // 4

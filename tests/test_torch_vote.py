@@ -1,0 +1,71 @@
+"""Port parity: the candidate vote (plain PyTorch on the CPU) against the
+JAX package's Pallas kernel in interpret mode and its XLA vote, exact."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from hashreadmapper_tpu.index import minhash_index as jmi
+from hashreadmapper_tpu.ops import vote_pallas
+from hashreadmapper_tpu_torch.index import minhash_index as mi
+from hashreadmapper_tpu_torch.ops.vote_kernel import (
+    vote_candidates_fnc, vote_candidates_fnc_plain)
+
+SENT = np.uint32(0xFFFFFFFF)
+
+
+def _cand(seed, f, n, c, id_range=24, empty_rows=4):
+    """[F, N, C] ascending SENTINEL-padded lists from a small id range so
+    that ids repeat across tables; the first rows are empty."""
+    rng = np.random.default_rng(seed)
+    cand = np.full((f, n, c), SENT, dtype=np.uint32)
+    for t in range(f):
+        for r in range(empty_rows, n):
+            m = rng.integers(0, c + 1)
+            ids = np.sort(rng.choice(id_range, size=min(m, id_range),
+                                     replace=False))
+            cand[t, r, :len(ids)] = ids
+    return cand
+
+
+def _check(got, want):
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w).astype(
+            g.numpy().dtype))
+
+
+@pytest.mark.parametrize("f,c,min_hits,cap", [
+    (4, 8, 1, 4),      # num_kept > cap for most rows
+    (5, 4, 4, 8),      # F not a power of two
+    (8, 16, 4, 8),
+    (3, 2, 2, 3),
+])
+def test_vote_matches_pallas_interpret(f, c, min_hits, cap):
+    cand = _cand(f * 100 + c, f, 128, c)
+    want = vote_pallas.vote_candidates_fnc(jnp.asarray(cand), min_hits, cap,
+                                           interpret=True)
+    got = vote_candidates_fnc_plain(torch.from_numpy(cand.astype(np.int64)),
+                                    min_hits, cap)
+    _check(got, want)
+    assert int(want[2][0]) == 0                      # empty rows
+    if min_hits == 1:
+        assert (np.asarray(want[2]) > cap).any()     # overflow exercised
+
+
+@pytest.mark.parametrize("c", [3, 6])
+def test_vote_any_c_matches_xla_vote(c):
+    """C not a power of two: the JAX XLA vote sorts; so does the port."""
+    cand = _cand(c, 6, 40, c)
+    want = jmi.vote_candidates(jnp.asarray(cand.transpose(1, 0, 2)), 2, 5)
+    got = mi.vote_candidates(
+        torch.from_numpy(cand.transpose(1, 0, 2).astype(np.int64)), 2, 5)
+    _check(got, want)
+
+
+def test_vote_wrapper_on_cpu_is_plain():
+    cand = torch.from_numpy(_cand(9, 4, 16, 4).astype(np.int64))
+    before = vote_candidates_fnc.launches
+    got = mi.vote_candidates_fnc_auto(cand, 2, 4)
+    _check(got, vote_candidates_fnc_plain(cand, 2, 4))
+    assert vote_candidates_fnc.launches == before
