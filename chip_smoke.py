@@ -6,10 +6,14 @@ Phase 0  card, torch and CUDA versions; builds native/ and the kernels.
 Phase 1  each CUDA kernel against its plain PyTorch version at the main
          path's shapes (integers: exact), with CUDA-event times.
 Phase 2  the flagship 3N run through the port's CLI on an 8 Mbp genome and
-         49,152 bisulfite reads: SAM/VCF checks, planted-read mapping and
-         concordance, the kernels' launch counts.
+         49,152 bisulfite reads, STEP 2 on the card: SAM/VCF checks,
+         planted-read mapping and concordance, the six kernels' launch
+         counts; then the same run with STEP 2 on staged pairs and with
+         host STEP 2 (byte-identical SAM and VCF), and the STEP-2 pair
+         counts.
 Phase 3  the same coarse mapper on the card and on the CPU (plain
-         versions): identical packed rows and overflow vectors.
+         versions): identical packed rows and overflow vectors, and
+         identical fused STEP-2 score rows and traceback entries.
 Phase 4  a chr1-sized (248,956,422 bp) window index resident on the card,
          coarse-mapping 49,152 planted reads.
 
@@ -78,6 +82,8 @@ def max_abs_err(got, want):
     want = want if isinstance(want, tuple) else (want,)
     err = 0
     for g, w in zip(got, want):
+        if g is None and w is None:
+            continue
         if g.shape != w.shape:
             raise AssertionError(f"shape {tuple(g.shape)} != {tuple(w.shape)}")
         if g.numel():
@@ -199,12 +205,14 @@ def phase1():
                   lambda: sk.shd_best(*shd_args),
                   lambda: sk.shd_best_plain(*shd_args)))
 
+    cases.extend(step2_cases(rng, dev))
     records = {}
-    for key, name, shape, kernel, plain in cases:
+    for key, name, shape, kernel, plain, *rest in cases:
+        view = rest[0] if rest else (lambda out: out)
         got = kernel()
         torch.cuda.synchronize()
         want = plain()
-        err = max_abs_err(got, want)
+        err = max_abs_err(view(got), view(want))
         ms, plain_ms = time_ms(kernel), time_ms(plain)
         log(f"phase1 {name} {shape}: max_abs_err {err} (exact required), "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
@@ -215,6 +223,96 @@ def phase1():
                                        "plain_ms": plain_ms, "shape": shape})
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
     return records
+
+
+def indel_pairs(rng, n, lq=128, lr=128):
+    """tests/test_bandtb.py's recipe: reads of 25-40 bases cut from a
+    40-128 base ref with substitutions, deletions or insertions of 1-3
+    bases, and every fourth pair random.  Codes 0..4, 4-padded."""
+    rc = np.full((n, lq), 4, np.int8)
+    fc = np.full((n, lr), 4, np.int8)
+    rls = np.zeros(n, np.int32)
+    fls = np.zeros(n, np.int32)
+    for i in range(n):
+        fl = int(rng.integers(40, lr + 1))
+        ref = rng.integers(0, 4, fl).astype(np.int8)
+        if i % 4 == 3:
+            read = rng.integers(0, 5, int(rng.integers(20, lq + 1)))
+        else:
+            start = int(rng.integers(0, max(1, fl - 30)))
+            seg = list(ref[start:start + int(rng.integers(25, 40))])
+            for _ in range(int(rng.integers(0, 5))):
+                seg[int(rng.integers(0, len(seg)))] = int(rng.integers(0, 4))
+            if i % 4 == 1 and len(seg) > 6:
+                d = int(rng.integers(1, 4))
+                p = int(rng.integers(1, len(seg) - d))
+                seg = seg[:p] + seg[p + d:]
+            elif i % 4 == 2:
+                p = int(rng.integers(1, len(seg)))
+                seg = seg[:p] + list(rng.integers(0, 4, int(
+                    rng.integers(1, 4)))) + seg[p:]
+            read = np.array(seg, np.int8)
+        rc[i, :len(read)] = read
+        fc[i, :fl] = ref
+        rls[i] = len(read)
+        fls[i] = fl
+    return rc, rls, fc, fls
+
+
+def step2_cases(rng, dev):
+    """The STEP-2 kernels at the fused path's shapes: P = 8,192 pairs
+    (one 4,096-read batch), LQ = n_cols = NL = 128."""
+    from hashreadmapper_tpu_torch.ops import bandtb_kernel as bk
+    from hashreadmapper_tpu_torch.ops import swdev
+    from hashreadmapper_tpu_torch.ops import swdev_kernel as swk
+    p, lq = 8192, 128
+    rc, rls, fc, fls = indel_pairs(rng, p)
+    read_t = torch.from_numpy(rc).to(dev).to(torch.int32).T.contiguous()
+    ref_t = torch.from_numpy(fc).to(dev).to(torch.int32).T.contiguous()
+    rl = torch.from_numpy(rls).to(dev)
+    fl = torch.from_numpy(fls).to(dev)
+    read_at, seg = swdev._striped_layout_t(read_t, rl, lq)
+    sat = torch.full((p,), swk.SAT, dtype=torch.int32, device=dev)
+    fwd = (read_at, rl, seg, ref_t, fl, sat, 0, lq, True)
+    score1 = swk.pass_batched_plain(*fwd)[0]
+    rev = (read_at, rl, seg, ref_t.flip(0).contiguous(), fl, score1, 1, lq,
+           False)
+    cases = [("sw_pass", f"sw_pass {name}", f"P={p} S=8 n_cols={lq}",
+              lambda a=a: swk.pass_batched(*a),
+              lambda a=a: swk.pass_batched_plain(*a))
+             for name, a in (("forward, max_column", fwd),
+                             ("reverse, terminate=score1", rev))]
+    begin = torch.from_numpy(rng.integers(-1, lq + 1, p).astype(
+        np.int32)).to(dev)
+    cases.append(("shift_sub", "shift_sub", f"L={lq} P={p} size={lq} "
+                  "begins in [-1, 128]",
+                  lambda: bk.shift_sub(read_t, begin, lq),
+                  lambda: bk.shift_sub_plain(read_t, begin, lq)))
+    s10 = swdev.ssw_score_packed_t(read_t, rl, ref_t, fl,
+                                   (rl // 2).clamp(min=15), lq)
+    qb, qe, rb, re = s10[6], s10[2], s10[5], s10[1]
+    need = ~((s10[9] != 0) | (s10[8] != 0) | (s10[0] == 0) | (re < 0))
+    sub_q = bk.shift_sub(read_t, qb, lq)
+    sub_r = bk.shift_sub(ref_t, rb, lq)
+    m, r = qe - qb + 1, re - rb + 1
+    widen = torch.from_numpy(rng.choice([1, 2, 4], p).astype(np.int32))
+    bw = ((r - m).abs() + 1) * widen.to(dev)
+    done = (~need | torch.from_numpy(
+        rng.random(p) < 0.25).to(dev)).to(torch.int32)
+    live = done == 0
+
+    def view(out):
+        # the kernel never writes a done pair's directions
+        best, dirs = out
+        return best if dirs is None else (best, dirs[live])
+    for emit in (False, True):
+        args = (sub_q, sub_r, m, r, bw, done, lq, emit)
+        cases.append(("fill_pass", "fill_pass",
+                      f"P={p} m_max=NL={lq} emit_dirs={emit}, "
+                      f"{int(live.sum())} pairs not done",
+                      lambda a=args: bk.fill_pass(*a),
+                      lambda a=args: bk.fill_pass_plain(*a), view))
+    return cases
 
 
 def write_dataset(tmp, rng):
@@ -235,23 +333,32 @@ def write_dataset(tmp, rng):
     return reads, starts, junk
 
 
-def phase2(tmp):
-    from hashreadmapper_tpu_torch import cli
+def kernel_wrappers():
+    """The six kernels' wrappers, by the names of the kernels JSON."""
+    from hashreadmapper_tpu_torch.ops.bandtb_kernel import fill_pass, shift_sub
     from hashreadmapper_tpu_torch.ops.minhash_kernel import sigs_from_bases
     from hashreadmapper_tpu_torch.ops.shd_kernel import shd_best
+    from hashreadmapper_tpu_torch.ops.swdev_kernel import pass_batched
     from hashreadmapper_tpu_torch.ops.vote_kernel import vote_candidates_fnc
-    kernels = {"minhash": sigs_from_bases, "vote": vote_candidates_fnc,
-               "shd_best": shd_best}
+    return {"minhash": sigs_from_bases, "vote": vote_candidates_fnc,
+            "shd_best": shd_best, "sw_pass": pass_batched,
+            "shift_sub": shift_sub, "fill_pass": fill_pass}
+
+
+def phase2(tmp):
+    from hashreadmapper_tpu_torch import cli
+    from hashreadmapper_tpu_torch.pipeline.driver import run_pipeline
+    kernels = kernel_wrappers()
     rng = np.random.default_rng(2)
     reads, starts, junk = write_dataset(tmp, rng)
     out = os.path.join(tmp, "out")
     argv = FLAGSHIP + ["--genomefile", os.path.join(tmp, "g.fa"), "-i",
-                       os.path.join(tmp, "reads.fq.gz"), "-o", out]
+                       os.path.join(tmp, "reads.fq.gz")]
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.values():
         k.launches = 0
     t0 = time.perf_counter()
-    res = cli.run(argv)
+    res = cli.run(argv + ["-o", out])
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
     log(f"phase2 kernel launches in the CLI run: {launches}")
@@ -260,6 +367,28 @@ def phase2(tmp):
                              f"{launches}")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    log(f"phase2 whole CLI run, device STEP 2: {wall:.3f} s, phase timers "
+        f"{res['timers']}, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B")
+
+    # the same run with STEP 2 on staged pairs (no pipelining), and with
+    # host STEP 2: byte-identical SAM and VCF
+    for label, extra, step2_device in (
+            ("device STEP 2 on staged pairs", ["--pipelineChunk", "0"], True),
+            ("host STEP 2", [], False)):
+        other = os.path.join(tmp, "out_other")
+        opts, device = cli.options_from_args(argv + extra + ["-o", other])
+        opts.step2_device = step2_device
+        t0 = time.perf_counter()
+        res_other = run_pipeline(opts, device)
+        log(f"phase2 whole run, {label}: {time.perf_counter() - t0:.3f} s, "
+            f"phase timers {res_other['timers']}")
+        for ext in (".SAM", ".VCF"):
+            with open(out + ext, "rb") as a, open(other + ext, "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"{ext}: {label} differs")
+        log(f"phase2 SAM and VCF: fused device STEP 2 == {label}, byte for "
+            "byte")
 
     with open(out + ".SAM") as fh:
         sam = fh.read()
@@ -286,25 +415,47 @@ def phase2(tmp):
     padded = np.zeros((N_READS, 128), np.int8)
     padded[:, :READ_LEN] = reads
     mapper.map_reads(padded[:4096], lens[:4096])
-    coarse_s = []
+    coarse_s, step2_s = [], []
     for _ in range(3):
         t = time.perf_counter()
         r = mapper.map_reads(padded, lens)
         coarse_s.append(time.perf_counter() - t)
+    for _ in range(3):
+        t = time.perf_counter()
+        r2, (sc, _, st) = mapper.map_reads(padded, lens, with_scores=True)
+        step2_s.append(time.perf_counter() - t)
     t_coarse = statistics.median(coarse_s)
+    t_step2 = statistics.median(step2_s)
     log(f"phase2 coarse {N_READS / t_coarse:.1f} reads/s (median of 3: "
-        f"{[round(s, 6) for s in coarse_s]} s), whole CLI run {wall:.3f} s "
-        f"(phase timers {res['timers']}), overflow {r.stats}, "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+        f"{[round(s, 6) for s in coarse_s]} s); coarse + device STEP 2 "
+        f"(scores, traceback, bundle to the host) "
+        f"{N_READS / t_step2:.1f} reads/s (median of 3: "
+        f"{[round(s, 6) for s in step2_s]} s); overflow {r.stats}")
+    if not np.array_equal(r2.position, r.position):
+        raise AssertionError("map_reads with scores moved coarse results")
+    mapped = np.repeat(r2.orientation != 3, 2)
+    diag, ovf = sc[9] != 0, sc[8] != 0
+    degen = (sc[0] == 0) | (sc[1] < 0)
+    need = ~(diag | ovf | degen)
+    counts = {"pairs of mapped reads": int(mapped.sum()),
+              "diag-certified": int((mapped & diag).sum()),
+              "host fallback (saturated)": int((mapped & ovf).sum()),
+              "degenerate": int((mapped & degen & ~ovf).sum()),
+              "need the traceback": int((mapped & need).sum()),
+              "walk status 1 (failed)": int((mapped & (st == 1)).sum()),
+              "walk status 2 (over 48 entries)":
+                  int((mapped & (st == 2)).sum())}
+    log(f"phase2 STEP-2 pairs: {counts}")
     return launches, res, reads, frac
 
 
 def phase3(res, reads, devices=("cuda", "cpu")):
     from hashreadmapper_tpu_torch import cli
-    from hashreadmapper_tpu_torch.pipeline.engine import CoarseMapper
-    n = 8192
+    from hashreadmapper_tpu_torch.pipeline.engine import (CoarseMapper,
+                                                          fused_step2_scores)
+    n, n_step2 = 8192, 1024
     lens = np.full(n, READ_LEN, np.int32)
-    outs = {}
+    outs, step2 = {}, {}
     for dev in devices:
         opts, _ = cli.options_from_args(FLAGSHIP + ["--device", dev])
         t0 = time.perf_counter()
@@ -314,8 +465,13 @@ def phase3(res, reads, devices=("cuda", "cpu")):
         parts = [m._map_batch(b[s:s + bsz], l[s:s + bsz], v[s:s + bsz])
                  for s in range(0, n_pad, bsz)]
         outs[dev] = [(p.cpu(), o.cpu()) for p, o in parts]
-        log(f"phase3 {dev}: index + {n} reads in "
-            f"{time.perf_counter() - t0:.3f} s")
+        t1 = time.perf_counter()
+        k = slice(0, n_step2)
+        step2[dev] = [x.cpu() for x in fused_step2_scores(
+            opts, m.table.chrom_offset, m.table.chrom_len, m.genome_s2(),
+            b[k], l[k], parts[0][0][k])]
+        log(f"phase3 {dev}: index + {n} reads in {t1 - t0:.3f} s, fused "
+            f"STEP 2 of {n_step2} reads in {time.perf_counter() - t1:.3f} s")
     card, host = (outs[d] for d in devices)
     for i, ((pc, oc), (pp, op)) in enumerate(zip(card, host)):
         if not torch.equal(pc, pp) or not torch.equal(oc, op):
@@ -326,6 +482,15 @@ def phase3(res, reads, devices=("cuda", "cpu")):
     log(f"phase3 card == CPU: {len(card)} batches of [B, 7] rows "
         f"and [5] overflow vectors identical; overflow "
         f"{[o.tolist() for _, o in card]}")
+    names = ("scores [10, 2B]", "tb_ops [2B, 48]", "tb_status [2B]")
+    for name, c, h in zip(names, *(step2[d] for d in devices)):
+        if c.dtype != h.dtype or not torch.equal(c, h):
+            raise AssertionError(f"phase3 fused STEP 2 {name}: card != CPU")
+    sc, _, st = step2[devices[0]]
+    log(f"phase3 card == CPU: fused STEP 2 of the first {n_step2} reads, "
+        f"{names} identical ({int((sc[9] == 0).sum())} pairs not "
+        f"diag-certified, walk status counts "
+        f"{torch.bincount(st.to(torch.int64), minlength=3).tolist()})")
 
 
 def phase4(device="cuda"):
@@ -403,7 +568,13 @@ def main():
             "vote": ("cuda", "hashreadmapper_tpu_torch/csrc/vote.cu",
                      "hashreadmapper_tpu/ops/vote_pallas.py:147"),
             "shd_best": ("cuda", "hashreadmapper_tpu_torch/csrc/shd.cu",
-                         "hashreadmapper_tpu/ops/shd_pallas.py:217")}
+                         "hashreadmapper_tpu/ops/shd_pallas.py:217"),
+            "sw_pass": ("cuda", "hashreadmapper_tpu_torch/csrc/swdev.cu",
+                        "hashreadmapper_tpu/ops/swdev_pallas.py:237"),
+            "shift_sub": ("cuda", "hashreadmapper_tpu_torch/csrc/bandtb.cu",
+                          "hashreadmapper_tpu/ops/bandtb.py:123"),
+            "fill_pass": ("cuda", "hashreadmapper_tpu_torch/csrc/bandtb.cu",
+                          "hashreadmapper_tpu/ops/bandtb.py:355")}
     kernels = [{"name": name, "route": route, "source": src,
                 "replaces": rep, "launches": launches[name],
                 **{k: records[name][k]

@@ -1,11 +1,12 @@
 """Build and bind the hand-written CUDA kernels of csrc/.
 
-All csrc/*.cu files are compiled by nvcc for sm_90a into ONE shared
-library with a plain C interface, loaded with ctypes (no PyTorch headers:
-seconds to build, not minutes).  The library lands in build/ under a name
-that carries the hash of the sources and flags, so an edited kernel is
-rebuilt on its first use and an unchanged one is reused.  Nothing is built
-or loaded at import: the first CUDA launch calls load().
+Each csrc/*.cu file is compiled by its own nvcc for sm_90a, all at once,
+and the objects are linked into ONE shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers: seconds to build, not
+minutes).  The library lands in build/ under a name that carries the hash
+of the sources and flags, so an edited kernel is rebuilt on its first use
+and an unchanged one is reused.  Nothing is built or loaded at import:
+the first CUDA launch calls load().
 
 Every entry point takes device pointers and the CUDA stream as c_void_p,
 sizes as c_int, launches on that stream without synchronising, and returns
@@ -28,7 +29,7 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +41,13 @@ _SIGNATURES = {
     "hrm_vote": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # a_hi, a_lo, r_hi, r_lo, mask, bounds, out, p, wa, wr, n_shifts, stream
     "hrm_shd_best": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # read_at, eff_len, seg_len, ref_t, ref_len, terminate, out, max_column,
+    # s, p, n_cols, ref_dir, want_mc, stream
+    "hrm_sw_pass": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, sh, out, l, p, size, mask, stream
+    "hrm_shift_sub": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # read_t, ref_t, m, r, bw, done, best, dirs, p, m_max, nl, emit, stream
+    "hrm_fill_pass": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -68,21 +76,42 @@ def _nvcc() -> str:
                        "CUDA kernels cannot be built")
 
 
+def _run(cmds, verbose: bool) -> None:
+    """Run the commands concurrently; raise with the output of a failure."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n(code {proc.returncode})\n{out}")
+        elif verbose and out:
+            print(out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def build(verbose: bool = False) -> str:
-    """Compile csrc/*.cu unless the library for these sources exists."""
+    """Compile csrc/*.cu (one nvcc per file, in parallel) and link them,
+    unless the library for these sources exists."""
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", tmp, *[s for s in sources() if s.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
+    nvcc = _nvcc()
+    srcs = [s for s in sources() if s.endswith(".cu")]
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
+    ptxas = ("-Xptxas", "-v") if verbose else ()
+    try:
+        _run([[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", o, s]
+              for s, o in zip(srcs, objs)], verbose)
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]], verbose)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     os.replace(tmp, out)
     return out
 

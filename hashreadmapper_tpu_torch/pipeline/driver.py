@@ -1,10 +1,13 @@
 """End-to-end driver: STEP 1 coarse map -> STEP 2 SAM -> STEP 3 VCF
 (counterpart of hashreadmapper_tpu/pipeline/driver.py).
 
-STEP 1 runs on the port's CoarseMapper (on opts' device); STEP 2 and 3
-are the JAX package's shared host code: mapping.run_cssw on its native
-SSW host path (opts.step2_device is set to False here, so that path is
-chosen, not fallen into), then the SAM and VCF writers.
+STEP 1 runs on the port's CoarseMapper on the given device.  STEP 2
+runs there too (the port's mapping.run_cssw: score passes and banded
+traceback fused into the coarse step per chunk when the reads are
+pipelined, in staged chunks otherwise), with the native CIGAR finish,
+rescore and records of the JAX package on the host.  opts.step2_device =
+False (set in code; no flag) takes the shared serial host path instead.
+STEP 3 and the SAM writer are the shared native bulk emitters.
 """
 
 from __future__ import annotations
@@ -18,11 +21,14 @@ from hashreadmapper_tpu.config import MapperType, ProgramOptions, \
     SequencePairType
 from hashreadmapper_tpu.io.genome import Genome
 from hashreadmapper_tpu.io.readstore import ReadStorage
-from hashreadmapper_tpu.pipeline import mapping
+from hashreadmapper_tpu.pipeline import mapping as shared
+from hashreadmapper_tpu.pipeline.records import (MappingRecords, emit_sam,
+                                                 emit_vcf)
 from hashreadmapper_tpu.utils.progress import ProgressReporter
 
 from ..utils.timers import PhaseTimers
 from .engine import CoarseMapper, CoarseResults
+from .mapping import run_cssw
 
 
 class _StringCachedGenome(Genome):
@@ -51,9 +57,11 @@ def with_string_cache(genome: Genome) -> Genome:
 def _pipelined_sw(mapper: CoarseMapper, bases: np.ndarray,
                   reads: ReadStorage, genome: Genome, genome_rc: Genome,
                   opts: ProgramOptions):
-    """Chunked coarse map on the device + host STEP 2 on two workers: the
-    workers fine-align chunk i while the main thread maps chunk i+1.
-    Returns (results, AlignerArguments with global read ids)."""
+    """Chunked coarse map on the device + STEP 2 on two workers: the
+    workers finish chunk i while the main thread maps chunk i+1.  With
+    device STEP 2 the coarse step also scores and traces back each chunk
+    (map_reads with_scores), so the workers only run host code.  Returns
+    (results, MappingRecords, or AlignerArguments with global read ids)."""
     n = reads.num_reads
     chunk = opts.step2_pipeline_chunk
     progress = ProgressReporter(n, label="reads mapped+aligned",
@@ -62,19 +70,31 @@ def _pipelined_sw(mapper: CoarseMapper, bases: np.ndarray,
     with ThreadPoolExecutor(max_workers=2) as ex:
         for c0 in range(0, n, chunk):
             c1 = min(c0 + chunk, n)
-            res = mapper.map_reads(bases[c0:c1], reads.lengths[c0:c1])
+            scores = None
+            if opts.step2_device:
+                res, scores = mapper.map_reads(
+                    bases[c0:c1], reads.lengths[c0:c1], with_scores=True)
+            else:
+                res = mapper.map_reads(bases[c0:c1], reads.lengths[c0:c1])
             res_parts.append(res)
             futs.append((c0, c1, ex.submit(
-                mapping.run_cssw, genome, genome_rc, res.orientation,
-                res.position, res.chromosome_id, reads.slice_rows(c0, c1),
-                opts, res.bs_strand)))
-        mappingout = []
+                run_cssw, genome, genome_rc, res.orientation, res.position,
+                res.chromosome_id, reads.slice_rows(c0, c1), opts,
+                res.bs_strand, scores, device=mapper.device)))
+        parts = []
         for c0, c1, fut in futs:
-            # read ids in a chunk's AlignerArguments are chunk-local
-            for aa in fut.result():
-                aa.read_id += c0
-                mappingout.append(aa)
+            parts.append((c0, fut.result()))
             progress.add(c1 - c0)
+    if all(isinstance(p, MappingRecords) for _, p in parts):
+        mappingout = MappingRecords.concat([p for _, p in parts])
+    else:
+        # read ids in a chunk's AlignerArguments are chunk-local
+        mappingout = []
+        for c0, p in parts:
+            aas = p.to_aas() if isinstance(p, MappingRecords) else p
+            for aa in aas:
+                aa.read_id += c0
+            mappingout.extend(aas)
     if opts.show_progress:
         progress.finish()
     stats: Dict[str, int] = {}
@@ -93,9 +113,8 @@ def _pipelined_sw(mapper: CoarseMapper, bases: np.ndarray,
 def run_pipeline(opts: ProgramOptions, device,
                  reads: Optional[ReadStorage] = None,
                  genome: Optional[Genome] = None) -> Dict:
-    """Read ingest, window index on `device`, coarse map, host STEP 2,
-    SAM and VCF; returns the JAX driver's result dict."""
-    opts.step2_device = False
+    """Read ingest, window index on `device`, coarse map, STEP 2, SAM and
+    VCF; returns the JAX driver's result dict."""
     timers = PhaseTimers()
 
     with timers.phase("STEP1"):
@@ -153,10 +172,15 @@ def run_pipeline(opts: ProgramOptions, device,
         sam_path = opts.outputfile + ".SAM"
         if opts.mapper_type == MapperType.SW:
             if not pipelined:
-                mappingout = mapping.run_cssw(
+                mappingout = run_cssw(
                     genome, genome_rc, results.orientation, results.position,
-                    results.chromosome_id, reads, opts, results.bs_strand)
-            sam_stats = mapping.print_to_sam(mappingout, genome, sam_path)
+                    results.chromosome_id, reads, opts, results.bs_strand,
+                    device=mapper.device)
+            if isinstance(mappingout, MappingRecords):
+                sam_stats = emit_sam(mappingout, genome, sam_path,
+                                     threads=max(1, opts.threads))
+            else:
+                sam_stats = shared.print_to_sam(mappingout, genome, sam_path)
         else:
             from hashreadmapper_tpu.pipeline import mapping_edlib
             mappingout = mapping_edlib.run_edlib(
@@ -168,8 +192,12 @@ def run_pipeline(opts: ProgramOptions, device,
         print(f"unmapped reads: {sam_stats['unmapped']}")
 
     with timers.phase("process variant calling"):
-        vcf_path = (mapping.do_vc(mappingout, genome, opts.outputfile)
-                    if opts.mapper_type == MapperType.SW else None)
+        if opts.mapper_type != MapperType.SW:
+            vcf_path = None
+        elif isinstance(mappingout, MappingRecords):
+            vcf_path = emit_vcf(mappingout, genome, opts.outputfile)
+        else:
+            vcf_path = shared.do_vc(mappingout, genome, opts.outputfile)
 
     timers.print_all()
     return {"results": results, "mappingout": mappingout,

@@ -3,10 +3,12 @@ through (counterpart of hashreadmapper_tpu/pipeline/engine.py).
 
 Per read batch: 3N signatures -> capped CSR probe -> min-table-hits vote
 -> SHD against the extended candidate windows -> per-read best (min
-Hamming, then earliest window).  This port covers the directional 3N
-configuration on one device; every tensor lives on the mapper's `device`
-(a CUDA device runs the hand-written kernels, the CPU their plain
-versions, with identical results).
+Hamming, then earliest window); with scores, also the fused STEP 2: the
+3N pairs of every read against its window, the striped-SW score passes
+and the banded traceback (fused_step2_scores).  This port covers the
+directional 3N configuration on one device; every tensor lives on the
+mapper's `device` (a CUDA device runs the hand-written kernels, the CPU
+their plain versions, with identical results).
 """
 
 from __future__ import annotations
@@ -17,12 +19,13 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from hashreadmapper_tpu.align import sw
 from hashreadmapper_tpu.config import ProgramOptions
 from hashreadmapper_tpu.io.genome import Genome
 from hashreadmapper_tpu.utils.progress import ProgressReporter
 
 from ..index import minhash_index as mi
-from ..ops import encode, minhash, shd
+from ..ops import bandtb, encode, minhash, shd, swdev
 from ..ops.shd_kernel import pack_genome_planes
 
 SENTINEL = 0xFFFFFFFF
@@ -214,9 +217,63 @@ def coarse_pairs_best(ids, read_bases, read_len, opts: ProgramOptions,
             pair_drops)
 
 
+def build_genome_s2(genome: Genome) -> np.ndarray:
+    """[G] int8 STEP-2 genome codes 0..4, chromosomes concatenated as in
+    the window table.  Unlike genome_concat, N stays code 4
+    (align.sw.TRANSLATE), which the score passes treat as a mismatch.
+    The JAX package nibble-packs the same codes to work around TPU
+    gathers (engine.build_genome_s2); here they stay one byte each."""
+    return np.concatenate([sw.TRANSLATE[np.asarray(a)]
+                           for a in genome.seqs_ascii]).astype(np.int8)
+
+
+def fused_step2_scores(opts: ProgramOptions, chrom_offset, chrom_len,
+                       genome_s2, read_bases, read_len, packed):
+    """STEP 2 of one coarse-mapped batch (engine.fused_step2_scores):
+    pairs [2i] = 3N query and [2i+1] = 3N reverse-complement query of read
+    i, both against read i's 3N window, for every row of the batch
+    (unmapped and padding rows score against chromosome 0, position 0).
+    Returns (scores [10, 2B] int16, tb_ops [2B, 48] uint8, tb_status
+    [2B] int8); without opts.step2_device_traceback the traceback is
+    skipped and tb_ops is [2B, 1] zeros."""
+    ws = opts.window_size
+    b, lq = read_bases.shape
+    dev = read_bases.device
+    packed = packed.to(torch.int64)
+    ori, chrom, pos = packed[:, 0], packed[:, 3], packed[:, 4]
+    rc = encode.revcomp_bases(read_bases, read_len)
+    is_rc = (ori == 2)[:, None]
+    # pairs built transposed ([L, pairs]), the layout the passes take
+    fwd_t = torch.where(is_rc, rc, read_bases).T
+    rcq_t = torch.where(is_rc, read_bases, rc).T
+    clen = chrom_len[chrom]
+    wl = torch.where(pos + ws < clen, ws, clen - pos).to(torch.int32)
+    iw = torch.arange(ws, device=dev)[:, None]
+    gidx = (chrom_offset[chrom] + pos)[None, :] + iw
+    win_t = genome_s2[gidx.clamp(max=genome_s2.shape[0] - 1)]
+    win_t = torch.where(iw < wl, win_t, 4)
+    ct = encode.three_n_c_to_t
+    pair_q_t = torch.stack([ct(fwd_t), ct(rcq_t)], dim=2).reshape(lq, 2 * b)
+    pair_ref_t = ct(win_t).repeat_interleave(2, dim=1)
+    rl32 = read_len.to(torch.int32)
+    scores = swdev.ssw_score_packed_t(
+        pair_q_t.to(torch.int32), rl32.repeat_interleave(2),
+        pair_ref_t.to(torch.int32), wl.repeat_interleave(2),
+        (rl32 // 2).clamp(min=15).repeat_interleave(2), ws)
+    if opts.step2_device_traceback:
+        tb_ops, tb_status = bandtb.fused_traceback_t(pair_q_t, pair_ref_t,
+                                                     scores)
+    else:
+        tb_ops = torch.zeros((2 * b, 1), dtype=torch.uint8, device=dev)
+        tb_status = torch.zeros(2 * b, dtype=torch.int8, device=dev)
+    return scores.to(torch.int16), tb_ops, tb_status
+
+
 class CoarseMapper:
     """The window index of one genome on one device, and the coarse
     mapping of read batches against it (directional 3N)."""
+
+    supports_fused_scores = True
 
     def __init__(self, genome: Genome, opts: ProgramOptions, device,
                  sig_batch: int = 4096, load_index_from: str = ""):
@@ -244,6 +301,7 @@ class CoarseMapper:
         self.index.build_buckets()
         if opts.probe_cap < 1023:
             self.index.build_cuckoo()
+        self._genome_s2 = None
         f2 = 2 * len(self.hash_ids)
         # 3N: no read-side key dropping; an empty dropped-keys mask
         self.dropped = (
@@ -387,9 +445,21 @@ class CoarseMapper:
         out["cuckoo_direct_probe"] = int(self.index.cuckoo_keys is not None)
         return out
 
-    def map_reads(self, read_bases: np.ndarray, read_lengths: np.ndarray
-                  ) -> CoarseResults:
-        """Map all reads: [N, L] int8 padded bases, [N] lengths."""
+    def genome_s2(self) -> torch.Tensor:
+        """The STEP-2 genome codes on the device, staged at first use."""
+        if self._genome_s2 is None:
+            self._genome_s2 = torch.from_numpy(
+                build_genome_s2(self.genome)).to(self.device)
+        return self._genome_s2
+
+    def map_reads(self, read_bases: np.ndarray, read_lengths: np.ndarray,
+                  with_scores: bool = False):
+        """Map all reads: [N, L] int8 padded bases, [N] lengths.
+
+        with_scores: also run the fused STEP 2 per batch and return
+        (results, (scores [10, 2N] int16, tb_ops [2N, 48] uint8,
+        tb_status [2N] int8)), or (results, scores) when
+        opts.step2_device_traceback is False."""
         opts = self.opts
         n, lr = read_bases.shape
         if lr > opts.max_read_length:
@@ -398,21 +468,33 @@ class CoarseMapper:
         bsz = opts.batchsize
         packed_parts, overflow = [], torch.zeros(5, dtype=torch.int64,
                                                  device=self.device)
+        step2_parts = []
         pool_n = self.read_pool_size(n, bsz) if n else 0
         for c0 in range(0, n, pool_n or 1):
             c1 = min(c0 + pool_n, n)
             bases, lens, valid, n_pad = self.stage_reads_device(
                 read_bases[c0:c1], read_lengths[c0:c1])
-            pool_parts = []
+            pool_parts, pool_step2 = [], []
             for s in range(0, n_pad, bsz):
-                p, o = self._map_batch(bases[s:s + bsz], lens[s:s + bsz],
-                                       valid[s:s + bsz])
+                sl = slice(s, s + bsz)
+                p, o = self._map_batch(bases[sl], lens[sl], valid[sl])
                 pool_parts.append(p)
                 overflow += o
+                if with_scores:
+                    t = self.table
+                    pool_step2.append(fused_step2_scores(
+                        opts, t.chrom_offset, t.chrom_len, self.genome_s2(),
+                        bases[sl], lens[sl], p))
             packed_parts.append(torch.cat(pool_parts)[:c1 - c0])
+            if with_scores:
+                k = 2 * (c1 - c0)
+                step2_parts.append((
+                    torch.cat([x[0] for x in pool_step2], dim=1)[:, :k],
+                    torch.cat([x[1] for x in pool_step2])[:k],
+                    torch.cat([x[2] for x in pool_step2])[:k]))
         packed = (torch.cat(packed_parts).cpu().numpy() if packed_parts
                   else np.zeros((0, 7), np.int32))
-        return CoarseResults(
+        results = CoarseResults(
             orientation=packed[:, 0].astype(np.int8),
             hamming=packed[:, 1].astype(np.int32),
             shift=packed[:, 2].astype(np.int32),
@@ -421,3 +503,14 @@ class CoarseMapper:
             global_window_id=packed[:, 5].astype(np.uint32),
             stats=self.stats(overflow.cpu().numpy()),
             bs_strand=packed[:, 6].astype(np.int8))
+        if not with_scores:
+            return results
+        if step2_parts:
+            bundle = tuple(torch.cat([x[i] for x in step2_parts],
+                                     dim=1 if i == 0 else 0).cpu().numpy()
+                           for i in range(3))
+        else:
+            bundle = (np.zeros((10, 0), np.int16), np.zeros((0, 1), np.uint8),
+                      np.zeros(0, np.int8))
+        return results, (bundle if opts.step2_device_traceback
+                         else bundle[0])

@@ -1,0 +1,224 @@
+"""Port parity: the banded traceback's staging shift, fill pass and
+run-length walk (PyTorch on the CPU) against the JAX package's
+ops/bandtb.py, its XLA twins and its Pallas kernels in interpret mode.
+All outputs are integers: exact equality."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from hashreadmapper_tpu.ops import bandtb as jbt
+from hashreadmapper_tpu.ops import swdev as jsw
+from hashreadmapper_tpu_torch.ops import bandtb as tbt
+from hashreadmapper_tpu_torch.ops.bandtb_kernel import (fill_pass, shift_sub,
+                                                        shift_sub_plain)
+
+from test_torch_swdev import indel_pairs
+
+LQ = NL = 128
+BP = 128
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def band_doubling_pairs(rng, n):
+    """A d-base deletion, then d inserted bases, inside a read of the ref:
+    r == m, so the first band |r - m| + 1 = 1 is too narrow and the fill
+    doubles it up to d (4..15)."""
+    rc = np.full((n, LQ), 4, np.int8)
+    fc = np.full((n, NL), 4, np.int8)
+    rls = np.zeros(n, np.int32)
+    fls = np.zeros(n, np.int32)
+    for i in range(n):
+        fl = int(rng.integers(100, NL + 1))
+        ref = rng.integers(0, 4, fl).astype(np.int8)
+        d = int(rng.integers(4, 16))
+        seg = np.concatenate([ref[5:30], ref[30 + d:60 + d],
+                              rng.integers(0, 4, d), ref[60 + d:85 + d]])
+        rc[i, :len(seg)] = seg
+        rls[i] = len(seg)
+        fc[i, :fl] = ref
+        fls[i] = fl
+    return rc, rls, fc, fls
+
+
+@pytest.fixture(scope="module")
+def scored():
+    """128 scored pairs (indel and band-doubling) and their [10, P] rows."""
+    rng = np.random.default_rng(23)
+    parts = [indel_pairs(rng, 96), band_doubling_pairs(rng, 32)]
+    rc, rls, fc, fls = (np.concatenate(x) for x in zip(*parts))
+    masks = np.maximum(15, rls // 2).astype(np.int32)
+    s10 = np.asarray(jsw.ssw_score_packed(rc, rls, fc, fls, masks, NL))
+    return rc, fc, s10
+
+
+def _pallas_shift(x, sh, size):
+    L, P = x.shape
+    return np.asarray(pl.pallas_call(
+        functools.partial(jbt._shift_kernel, size=size),
+        grid=(P // BP,),
+        in_specs=[pl.BlockSpec((L, BP), lambda g: (0, g)),
+                  pl.BlockSpec((1, BP), lambda g: (0, g))],
+        out_specs=pl.BlockSpec((size, BP), lambda g: (0, g)),
+        out_shape=jax.ShapeDtypeStruct((size, P), jnp.int32),
+        scratch_shapes=[pltpu.VMEM((L + size, BP), jnp.int32)],
+        interpret=True)(jnp.asarray(x), jnp.asarray(sh).reshape(1, P)))
+
+
+@pytest.mark.parametrize("L,size", [(128, 128), (96, 128)])
+def test_shift_sub_equals_both_jax_shifts(L, size):
+    """Begins in [-1, L + size].  The Pallas kernel fills with 4 past the
+    end; the XLA twin rolls (wraps around), so the two JAX shifts differ
+    where begin & mask > L; the port follows the Pallas kernel everywhere
+    and equals the XLA twin where they agree (every begin a walked pair
+    has)."""
+    rng = np.random.default_rng(L)
+    P = 256
+    x = rng.integers(0, 5, (L, P)).astype(np.int32)
+    sh = rng.integers(-1, L + size + 1, P).astype(np.int32)
+    sh[:4] = [-1, 0, L, L + size]
+    before = shift_sub.launches
+    got = shift_sub(_t(x), _t(sh), size).numpy()
+    assert shift_sub.launches == before
+    np.testing.assert_array_equal(got, shift_sub_plain(_t(x), _t(sh),
+                                                       size).numpy())
+    np.testing.assert_array_equal(got, _pallas_shift(x, sh, size))
+    xla = np.asarray(jbt._shift_sub_xla(jnp.asarray(x), jnp.asarray(sh),
+                                        size))
+    eff = sh & ((1 << (L + size - 1).bit_length()) - 1)
+    agree = eff <= L
+    assert not agree[0] and agree[1:3].all() and (~agree).sum() > 10
+    np.testing.assert_array_equal(got[:, agree], xla[:, agree])
+
+
+def _pallas_fill(read_t, ref_t, m, r, bw, done, emit):
+    """bandtb._fill_pallas in interpret mode (one grid step per block)."""
+    P = ref_t.shape[1]
+    row1 = lambda a: jnp.asarray(a, jnp.int32).reshape(1, P)
+    blk = lambda: pl.BlockSpec((1, BP), lambda g: (0, g))
+    out_specs, out_shape = [blk()], [jax.ShapeDtypeStruct((1, P), jnp.int32)]
+    if emit:
+        out_specs.insert(0, pl.BlockSpec((LQ, NL, BP), lambda g: (0, 0, g)))
+        out_shape.insert(0, jax.ShapeDtypeStruct((LQ, NL, P), jnp.int16))
+    out = pl.pallas_call(
+        functools.partial(jbt._fill_kernel, m_max=LQ, emit_dirs=emit),
+        grid=(P // BP,),
+        in_specs=[pl.BlockSpec((LQ, BP), lambda g: (0, g)),
+                  pl.BlockSpec((NL, BP), lambda g: (0, g)),
+                  blk(), blk(), blk(), blk()],
+        out_specs=out_specs, out_shape=out_shape,
+        scratch_shapes=[pltpu.VMEM((NL, BP), jnp.int32)] * 4,
+        interpret=True)(jnp.asarray(read_t), jnp.asarray(ref_t), row1(m),
+                        row1(r), row1(bw), row1(done))
+    if emit:
+        return np.asarray(out[1][0]), np.asarray(out[0])
+    return np.asarray(out[0][0]), None
+
+
+@pytest.mark.parametrize("emit", [False, True])
+def test_fill_pass_equals_xla_and_interpret_pallas(scored, emit):
+    """One fill pass on the subregions of 128 scored pairs, first bands
+    and doubled ones, a quarter of the pairs done: best where not done,
+    and directions (rows >= m are 0) for the pairs not done."""
+    rc, fc, s10 = scored
+    qb, qe, rb, re = s10[6], s10[2], s10[5], s10[1]
+    ok = (s10[0] > 0) & (re >= 0) & (s10[8] == 0)
+    qb, rb = np.where(ok, qb, 0), np.where(ok, rb, 0)
+    m = np.where(ok, qe - qb + 1, 0).astype(np.int32)
+    r = np.where(ok, re - rb + 1, 0).astype(np.int32)
+    rng = np.random.default_rng(4)
+    bw = (np.abs(r - m) + 1) * rng.choice([1, 2, 4], size=len(m))
+    bw = bw.astype(np.int32)
+    done = (rng.random(len(m)) < 0.25).astype(np.int32)
+    read_t = np.asarray(jbt._shift_sub_xla(
+        jnp.asarray(rc).astype(jnp.int32).T, jnp.asarray(qb), LQ))
+    ref_t = np.asarray(jbt._shift_sub_xla(
+        jnp.asarray(fc).astype(jnp.int32).T, jnp.asarray(rb), NL))
+    best_x, dirs_x = jbt._fill_pass(
+        jnp.asarray(read_t), jnp.asarray(ref_t).T, jnp.asarray(m),
+        jnp.asarray(r), jnp.asarray(bw), LQ, emit)
+    best_p, dirs_p = _pallas_fill(read_t, ref_t, m, r, bw, done, emit)
+    before = fill_pass.launches
+    best, dirs = fill_pass(_t(read_t), _t(ref_t), _t(m), _t(r), _t(bw),
+                           _t(done), LQ, emit)
+    assert fill_pass.launches == before
+    live = done == 0
+    np.testing.assert_array_equal(best.numpy()[live], np.asarray(best_x)[live])
+    np.testing.assert_array_equal(best.numpy()[live], best_p[live])
+    assert (best.numpy()[~live] == 0).all()
+    if not emit:
+        assert dirs is None
+        return
+    assert dirs.shape == (len(m), LQ, NL) and dirs.dtype == torch.int16
+    got = dirs.numpy()[live]
+    np.testing.assert_array_equal(
+        got, np.asarray(dirs_x).transpose(1, 0, 2)[live])
+    np.testing.assert_array_equal(got, dirs_p.transpose(2, 0, 1)[live])
+    rows = np.arange(LQ)[None, :, None]
+    assert (np.where(rows >= m[live][:, None, None], got, 0) == 0).all()
+    assert (got & 7).max() >= 4                 # D runs present
+
+
+@pytest.mark.parametrize("mode", ["dispatch", "fused"])
+def test_traceback_walk_equals_jax(scored, mode):
+    """_tb_core_t in both entry modes (int16 entries over every pair;
+    uint8-run entries over the needed pairs), the band doubling included,
+    and fused_traceback_t."""
+    rc, fc, s10 = scored
+    need = ~((s10[9] != 0) | (s10[8] != 0) | (s10[0] == 0) | (s10[1] < 0))
+    read_tt = jnp.asarray(rc).astype(jnp.int32).T
+    ref_tt = jnp.asarray(fc).astype(jnp.int32).T
+    if mode == "dispatch":
+        sel = np.nonzero(need)[0]
+        cols = lambda a: a[:, sel]
+        kw = dict(m_max=LQ, n_entries=jbt.N_ENTRIES)
+        want = jbt._banded_tb_jit(
+            jnp.asarray(rc[sel]), s10[6][sel], s10[2][sel],
+            jnp.asarray(fc[sel]), s10[5][sel], s10[1][sel], s10[0][sel],
+            **kw)
+        got = tbt._tb_core_t(_t(cols(np.asarray(read_tt))), _t(s10[6][sel]),
+                             _t(s10[2][sel]), _t(cols(np.asarray(ref_tt))),
+                             _t(s10[5][sel]), _t(s10[1][sel]),
+                             _t(s10[0][sel]), **kw)
+        live = slice(None)
+        bw0 = np.abs((s10[1] - s10[5]) - (s10[2] - s10[6]))[sel] + 1
+        ops, status = tbt.banded_traceback_batch(
+            rc[sel], s10[6][sel], s10[2][sel], fc[sel], s10[5][sel],
+            s10[1][sel], s10[0][sel])
+        np.testing.assert_array_equal(ops, np.asarray(want[0]))
+        np.testing.assert_array_equal(status, np.asarray(want[1]))
+    else:
+        kw = dict(m_max=LQ, n_entries=jbt.FUSED_ENTRIES, run_cap=63)
+        want = jax.jit(jbt._tb_core_t, static_argnames=(
+            "m_max", "n_entries", "use_pallas", "run_cap"))(
+            read_tt, s10[6], s10[2], ref_tt, s10[5], s10[1], s10[0],
+            need=jnp.asarray(need), **kw)
+        got = tbt._tb_core_t(_t(np.asarray(read_tt)), _t(s10[6]),
+                             _t(s10[2]), _t(np.asarray(ref_tt)), _t(s10[5]),
+                             _t(s10[1]), _t(s10[0]), need=_t(need), **kw)
+        live = need
+        bw0 = np.abs((s10[1] - s10[5]) - (s10[2] - s10[6]))[need] + 1
+    ents, status, bw = (x.numpy() for x in got)
+    assert ents.dtype == np.int16 and status.dtype == np.int8
+    np.testing.assert_array_equal(ents, np.asarray(want[0]))
+    np.testing.assert_array_equal(status, np.asarray(want[1]))
+    np.testing.assert_array_equal(bw[live], np.asarray(want[2])[live])
+    assert (bw[live] > bw0).sum() >= 5              # bands doubled
+    assert ((ents & 3) == jbt.OP_D).any() and ((ents & 3) == jbt.OP_I).any()
+    if mode == "fused":
+        assert ents.max() >> 2 <= 63
+        jops, jst = jbt.fused_traceback_t(read_tt, ref_tt, jnp.asarray(s10))
+        tops, tst = tbt.fused_traceback_t(_t(np.asarray(read_tt)),
+                                          _t(np.asarray(ref_tt)), _t(s10))
+        assert tops.dtype == torch.uint8 and tst.dtype == torch.int8
+        np.testing.assert_array_equal(tops.numpy(), np.asarray(jops))
+        np.testing.assert_array_equal(tst.numpy(), np.asarray(jst))

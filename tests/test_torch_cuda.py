@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on the
-card, at small edge shapes (production shapes run in chip_smoke.py).
+card, at small edge shapes (production shapes run in chip_smoke.py), and
+the STEP-2 score rows and traceback on the card against the CPU.
 
 Needs a CUDA card and nvcc; skipped without a card.  Imports no jax, so
 it runs on a machine without it:
@@ -11,8 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from hashreadmapper_tpu_torch.ops import bandtb
+from hashreadmapper_tpu_torch.ops import bandtb_kernel as bk
 from hashreadmapper_tpu_torch.ops import minhash_kernel as mk
 from hashreadmapper_tpu_torch.ops import shd_kernel as sk
+from hashreadmapper_tpu_torch.ops import swdev
+from hashreadmapper_tpu_torch.ops import swdev_kernel as swk
 from hashreadmapper_tpu_torch.ops import vote_kernel as vk
 
 pytestmark = pytest.mark.cuda
@@ -87,6 +92,117 @@ def test_shd_best_kernel_equals_plain(dev, wr, n_shifts):
     assert torch.equal(got, sk.shd_best_plain(*args))
 
 
+def _pairs(rng, p, lq, lr):
+    """Reads cut from their ref with substitutions and a 0-3 base indel,
+    every third pair random; every seventh a full-length exact copy, which
+    saturates the byte mode at 128.  Codes 0..4, 4-padded, int32 [L, P]."""
+    rc = np.full((p, lq), 4, np.int32)
+    fc = np.full((p, lr), 4, np.int32)
+    rls = rng.integers(1, lq + 1, p).astype(np.int32)
+    fls = rng.integers(1, lr + 1, p).astype(np.int32)
+    for i in range(p):
+        ref = rng.integers(0, 5, fls[i])
+        read = rng.integers(0, 5, rls[i])
+        if i % 3:
+            read = np.resize(ref, rls[i])
+            sub = rng.random(rls[i]) < 0.05
+            read[sub] = rng.integers(0, 4, int(sub.sum()))
+            cut, d = int(rng.integers(0, rls[i])), int(rng.integers(0, 4))
+            read = np.concatenate([read[:cut], read[cut + d:],
+                                   rng.integers(0, 4, d)])[:rls[i]]
+        if i % 7 == 0:
+            rls[i], fls[i] = min(lq, lr), lr
+            ref = rng.integers(0, 4, lr)
+            read = ref[:rls[i]]
+        rc[i, :rls[i]] = read
+        fc[i, :fls[i]] = ref
+    return (torch.from_numpy(rc.T.copy()), torch.from_numpy(rls),
+            torch.from_numpy(fc.T.copy()), torch.from_numpy(fls))
+
+
+def _equal(got, want):
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("p,lq,lr", [(1, 16, 16), (37, 64, 96),
+                                     (130, 112, 128), (300, 128, 128)])
+def test_sw_pass_kernel_equals_plain(dev, p, lq, lr):
+    """S = 1, 4, 7 and 8; forward with max_column, then reverse-ordered
+    columns with terminate = the forward best."""
+    rng = np.random.default_rng(p)
+    read_t, rl, ref_t, fl = (x.to(dev) for x in _pairs(rng, p, lq, lr))
+    read_at, seg = swdev._striped_layout_t(read_t, rl, lq)
+    sat = torch.full((p,), swk.SAT, dtype=torch.int32, device=dev)
+    fwd = (read_at, rl, seg, ref_t, fl, sat, 0, lr, True)
+    got = _launched_once(swk.pass_batched, lambda: swk.pass_batched(*fwd))
+    _equal(got, swk.pass_batched_plain(*fwd))
+    rev = (read_at, rl, seg, ref_t.flip(0).contiguous(), fl, got[0], 1, lr,
+           False)
+    _equal(_launched_once(swk.pass_batched, lambda: swk.pass_batched(*rev)),
+           swk.pass_batched_plain(*rev))
+
+
+@pytest.mark.parametrize("L,size,p", [(128, 128, 300), (96, 128, 33),
+                                      (7, 5, 1)])
+def test_shift_sub_kernel_equals_plain(dev, L, size, p):
+    rng = np.random.default_rng(L)
+    x = torch.from_numpy(rng.integers(0, 5, (L, p)).astype(np.int32)).to(dev)
+    sh = rng.integers(-1, L + size + 1, p).astype(np.int32)
+    sh[0], sh[-1] = -1, L + size
+    sh = torch.from_numpy(sh).to(dev)
+    got = _launched_once(bk.shift_sub, lambda: bk.shift_sub(x, sh, size))
+    assert torch.equal(got, bk.shift_sub_plain(x, sh, size))
+
+
+@pytest.mark.parametrize("nl,emit", [(128, False), (128, True), (100, True),
+                                     (32, True), (200, True)])
+def test_fill_kernel_equals_plain(dev, nl, emit):
+    """Subregions of scored pairs at first and widened bands, a third of
+    the pairs done (their directions are never written)."""
+    rng = np.random.default_rng(nl)
+    p, lq = 150, 96
+    read_t, rl, ref_t, fl = (x.to(dev) for x in _pairs(rng, p, lq, nl))
+    s10 = swdev.ssw_score_packed_t(read_t, rl, ref_t, fl,
+                                   (rl // 2).clamp(min=15), nl)
+    qb, qe, rb, re = s10[6], s10[2], s10[5], s10[1]
+    ok = (s10[0] > 0) & (re >= 0) & (s10[8] == 0)
+    qb, rb = torch.where(ok, qb, 0), torch.where(ok, rb, 0)
+    m = torch.where(ok, qe - qb + 1, 0)
+    r = torch.where(ok, re - rb + 1, 0)
+    widen = torch.from_numpy(rng.choice([1, 2, 8], p).astype(np.int32))
+    bw = ((r - m).abs() + 1) * widen.to(dev)
+    done = torch.from_numpy((rng.random(p) < 0.33).astype(np.int32)).to(dev)
+    args = (bk.shift_sub(read_t, qb, lq), bk.shift_sub(ref_t, rb, nl), m, r,
+            bw, done, lq, emit)
+    best, dirs = _launched_once(bk.fill_pass, lambda: bk.fill_pass(*args))
+    best_p, dirs_p = bk.fill_pass_plain(*args)
+    assert torch.equal(best, best_p)
+    if emit:
+        live = done == 0
+        assert torch.equal(dirs[live], dirs_p[live])
+    else:
+        assert dirs is None and dirs_p is None
+
+
+def test_score_rows_and_traceback_card_equals_cpu(dev):
+    """ssw_score_packed_t and fused_traceback_t, every kernel on the
+    card, against the same functions on the CPU (plain versions)."""
+    rng = np.random.default_rng(9)
+    pairs = _pairs(rng, 260, 128, 128)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        read_t, rl, ref_t, fl = (x.to(d) for x in pairs)
+        s10 = swdev.ssw_score_packed_t(read_t, rl, ref_t, fl,
+                                       (rl // 2).clamp(min=15), 128)
+        outs.append([s10, *bandtb.fused_traceback_t(read_t, ref_t, s10)])
+    for c, h in zip(*outs):
+        assert c.dtype == h.dtype and torch.equal(c.cpu(), h)
+    assert (outs[1][2] == 0).any() and (outs[1][0][9] == 0).any()
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     x = torch.zeros((4, 2, 40), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="wr=17"):
@@ -101,3 +217,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
                                        device=dev),
                            torch.zeros(2, dtype=torch.int32), 16,
                            torch.zeros(1, dtype=torch.int64, device=dev))
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="S=9"):
+        swk.pass_batched(z(9, 16, 4), z(4), z(4), z(8, 4), z(4), z(4), 0, 8,
+                         False)
+    with pytest.raises(ValueError, match="NL=300"):
+        bk.fill_pass(z(8, 4), z(300, 4), z(4), z(4), z(4), z(4), 8, False)

@@ -13,14 +13,17 @@ import torch
 from hashreadmapper_tpu.io.genome import Genome
 from hashreadmapper_tpu.pipeline.driver import run_pipeline as jax_pipeline
 from hashreadmapper_tpu_torch import cli
+from hashreadmapper_tpu_torch.ops.bandtb_kernel import fill_pass, shift_sub
 from hashreadmapper_tpu_torch.ops.minhash_kernel import sigs_from_bases
 from hashreadmapper_tpu_torch.ops.shd_kernel import shd_best
+from hashreadmapper_tpu_torch.ops.swdev_kernel import pass_batched
 from hashreadmapper_tpu_torch.ops.vote_kernel import vote_candidates_fnc
 from hashreadmapper_tpu_torch.pipeline.driver import run_pipeline
 from hashreadmapper_tpu_torch.pipeline.engine import CoarseMapper
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = (sigs_from_bases, vote_candidates_fnc, shd_best)
+KERNELS = (sigs_from_bases, vote_candidates_fnc, shd_best, pass_batched,
+           shift_sub, fill_pass)
 
 
 @pytest.fixture(scope="module")
@@ -67,18 +70,38 @@ def _outputs(prefix):
         return a.read(), b.read()
 
 
-@pytest.mark.parametrize("chunk", [0, 100])
-def test_sam_vcf_byte_identical_to_jax(dataset, tmp_path, chunk):
+@pytest.fixture(scope="module")
+def jax_runs(dataset, tmp_path_factory):
+    """The JAX CLI's SAM, VCF and coarse positions per --pipelineChunk."""
     from hashreadmapper_tpu.cli import options_from_args
-    jopts = options_from_args(_argv(dataset, str(tmp_path / "jax"), chunk))
-    jres = jax_pipeline(jopts)
+    cache = {}
+
+    def run(chunk):
+        if chunk not in cache:
+            out = str(tmp_path_factory.mktemp("jax") / "jax")
+            res = jax_pipeline(options_from_args(_argv(dataset, out, chunk)))
+            cache[chunk] = _outputs(out) + (res["results"].position,)
+        return cache[chunk]
+    return run
+
+
+@pytest.mark.parametrize("chunk,step2", [
+    pytest.param(0, "device", id="0"), pytest.param(100, "device", id="100"),
+    pytest.param(0, "host", id="host-0"),
+    pytest.param(100, "host", id="host-100")])
+def test_sam_vcf_byte_identical_to_jax(dataset, tmp_path, jax_runs, chunk,
+                                       step2):
+    """Device STEP 2 (chunk 0: host-staged pairs; 100: fused into the
+    coarse step) and host STEP 2 (opts.step2_device = False, set in code)
+    against the JAX CLI; on the CPU no kernel launches."""
+    jsam, jvcf, jpos = jax_runs(chunk)
     before = [k.launches for k in KERNELS]
     topts, device = cli.options_from_args(
         _argv(dataset, str(tmp_path / "port"), chunk) + ["--device", "cpu"])
+    assert topts.step2_device is True
+    topts.step2_device = step2 == "device"
     tres = run_pipeline(topts, device)
     assert [k.launches for k in KERNELS] == before
-    assert topts.step2_device is False
-    jsam, jvcf = _outputs(jopts.outputfile)
     tsam, tvcf = _outputs(topts.outputfile)
     assert tsam == jsam
     assert tvcf == jvcf
@@ -86,8 +109,7 @@ def test_sam_vcf_byte_identical_to_jax(dataset, tmp_path, chunk):
     body = [ln for ln in tsam.split(b"\n") if ln and not ln.startswith(b"@")]
     assert len(body) == 240
     assert (tres["results"].orientation != 3).mean() > 0.9
-    np.testing.assert_array_equal(tres["results"].position,
-                                  jres["results"].position)
+    np.testing.assert_array_equal(tres["results"].position, jpos)
 
 
 def test_edlib_sam_byte_identical_to_jax(dataset, tmp_path):
