@@ -2,9 +2,14 @@
 
     python3 chip_smoke.py            # all phases, one CUDA card
 
-Phase 0  card, torch and CUDA versions; builds native/ and the kernels.
-Phase 1  each CUDA kernel against its plain PyTorch version at the main
-         path's shapes (integers: exact), with CUDA-event times.
+Phase 0  card, torch and CUDA versions; builds the native host library
+         and the kernels through the port's _build.
+Phase 1  each of the eight CUDA kernels against its plain PyTorch version
+         at the main path's shapes (integers: exact), with CUDA-event
+         times, the least time the card could take for the same work
+         (bound_ms) and, where one PyTorch call computes the same function,
+         that call's time; sig_min_murmur against sigs_from_bases('fwd')
+         and the row minimum of shd_hamming_matrix against shd_best.
 Phase 2  the flagship 3N run through the port's CLI on an 8 Mbp genome and
          49,152 bisulfite reads, STEP 2 on the card: SAM/VCF checks,
          planted-read mapping and concordance, the six kernels' launch
@@ -14,13 +19,24 @@ Phase 2  the flagship 3N run through the port's CLI on an 8 Mbp genome and
 Phase 3  the same coarse mapper on the card and on the CPU (plain
          versions): identical packed rows and overflow vectors, and
          identical fused STEP-2 score rows and traceback entries.
+Phase 5  --threeN --undirectional through the CLI at the same width on
+         49,152 four-strand reads (a quarter each of forward C->T,
+         reverse-complemented C->T, forward G->A and reverse-complemented
+         G->A in read space): mapping and concordance over all strands and
+         per PBAT strand, the directional run of the same reads beside
+         it, launch counts, and card == CPU on the packed rows (strand
+         column included) and the fused STEP-2 bundle of 1,024 reads.
+Phase 6  parity mode (no --threeN) through the CLI on 16,384 unconverted
+         reads: mapping and concordance, launch counts, and card == CPU
+         packed rows of 1,024 reads.
 Phase 4  a chr1-sized (248,956,422 bp) window index resident on the card,
          coarse-mapping 49,152 planted reads.
 
 Any failure raises (non-zero exit).  The last line is the JSON device
 record; the line before it is nvidia-smi's name and power limit; the one
 before that the per-kernel JSON record.  Exits non-zero without a result
-when no CUDA device is available.  Imports nothing of JAX.
+when no CUDA device is available.  Imports nothing of JAX and nothing of
+the JAX package.
 """
 
 import gzip
@@ -52,8 +68,25 @@ FLAGSHIP = ["--threeN", "-k", "16", "-m", "16", "--windowSize", "128",
 AT_SCALE = ["--probeCap", "128", "--candidatesPerRead", "32",
             "--shdPairBudget", "16", "--probeTailBudget", "0",
             "--probeHeadBudget", "0"]
+GENOME_LEN = 8_000_000
 N_READS, READ_LEN = 49_152, 100
+N_PARITY = 16_384
+OVERFLOW_KEYS = ("probe_overflow", "vote_overflow", "pair_budget_overflow",
+                 "probe_tail_overflow", "probe_head_overflow")
 CHR1_LEN = 248_956_422          # GRCh38 chr1
+# The card's peaks, for bound_ms: device memory 3.35 TB/s (H100 SXM data
+# sheet); integer operations 16.75e12 a second, from the data sheet's 67
+# TFLOP/s of float32 (128 lanes an SM, 2 operations an FMA) and Hopper's
+# 64 int32 lanes an SM: 67e12 / 2 / 2.
+MEM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 16.75e12
+# 32-bit integer operations of one murmur64 fmix of (k-mer + hash id)
+# kept against a running 64-bit minimum: two 64-bit multiplies (4
+# multiply-adds each), three 64-bit xor-shifts (2 each), the add with
+# carry (2) and the compare-and-keep (3)
+OPS_PER_HASH = 19
+# shift, shift, xor, xor, or, and, popcount, add per word of one shift
+OPS_PER_SHD_WORD = 8
 
 
 def log(*args):
@@ -75,6 +108,20 @@ def time_ms(fn, reps=7, warmup=2):
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(bytes_moved, operations):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    integer operations over the integer rate."""
+    t_bytes = bytes_moved / MEM_BYTES_PER_S * 1e3
+    t_ops = operations / INT_OPS_PER_S * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations"))
 
 
 def max_abs_err(got, want):
@@ -109,6 +156,42 @@ def planted_reads(rng, chrom, n_reads, read_len):
     return reads.astype(np.int8), starts, junk
 
 
+def four_strand_reads(rng, chrom, n_reads, read_len):
+    """The undirectional scenario (tests/test_undirectional.py) in the
+    flagship recipe: read i is of kind i % 4 = forward C->T, reverse-
+    complemented C->T, forward G->A (PBAT), reverse-complemented G->A
+    (PBAT), converted at 90% in read space; 1% substitutions, 10% junk.
+    Returns (reads, starts, junk, kind)."""
+    starts = rng.integers(0, len(chrom) - read_len, size=n_reads)
+    reads = chrom[starts[:, None] + np.arange(read_len)[None, :]].copy()
+    sub = rng.random(reads.shape) < 0.01
+    reads[sub] = rng.integers(0, 4, size=int(sub.sum()))
+    kind = np.arange(n_reads) % 4
+    rc = (kind == 1) | (kind == 3)
+    reads[rc] = 3 - reads[rc][:, ::-1]
+    conv = rng.random(reads.shape) < 0.9
+    reads[(reads == 1) & conv & (kind < 2)[:, None]] = 3
+    reads[(reads == 2) & conv & (kind >= 2)[:, None]] = 0
+    junk = rng.random(n_reads) < 0.10
+    reads[junk] = rng.integers(0, 4, size=(int(junk.sum()), read_len),
+                               dtype=np.int8)
+    return reads.astype(np.int8), starts, junk, kind
+
+
+def unconverted_reads(rng, chrom, n_reads, read_len):
+    """Parity-mode reads: the flagship recipe without the conversion."""
+    starts = rng.integers(0, len(chrom) - read_len, size=n_reads)
+    reads = chrom[starts[:, None] + np.arange(read_len)[None, :]].copy()
+    sub = rng.random(reads.shape) < 0.01
+    reads[sub] = rng.integers(0, 4, size=int(sub.sum()))
+    rc = rng.random(n_reads) < 0.5
+    reads[rc] = 3 - reads[rc][:, ::-1]
+    junk = rng.random(n_reads) < 0.10
+    reads[junk] = rng.integers(0, 4, size=(int(junk.sum()), read_len),
+                               dtype=np.int8)
+    return reads.astype(np.int8), starts, junk
+
+
 def check_fractions(label, mapped, concordant, junk):
     planted = ~junk
     frac_mapped = float(mapped[planted].mean())
@@ -132,64 +215,74 @@ def phase0():
     log(f"phase0 card: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
+    from hashreadmapper_tpu_torch import _build, native
     t0 = time.perf_counter()
-    make = subprocess.run(["make", "-C", os.path.join(REPO, "native"), "-j8"],
-                          capture_output=True, text=True)
-    if make.returncode != 0:
-        log(make.stdout + make.stderr)
-        raise RuntimeError(f"make native failed ({make.returncode})")
+    _build.build_native(verbose=True)
+    native.get_lib()                 # raises with the compiler's output
     t1 = time.perf_counter()
-    from hashreadmapper_tpu import native
-    if not native.available():
-        raise RuntimeError("native/libhrm_native.so built but does not load")
-    from hashreadmapper_tpu_torch import _build
     _build.build(verbose=True)
     _build.load()
     t2 = time.perf_counter()
-    log(f"phase0 build: native {t1 - t0:.3f} s, CUDA kernels "
+    log(f"phase0 build: native {t1 - t0:.3f} s "
+        f"({os.path.basename(_build.native_library_path())}), CUDA kernels "
         f"{t2 - t1:.3f} s ({os.path.basename(_build.library_path())})")
     return smi
 
 
 def phase1():
-    """Kernel == plain at production shapes; returns per-kernel records."""
+    """Kernel == plain at production shapes; returns per-kernel records
+    (the first case of each kernel: its times, bound and library call)."""
     from hashreadmapper_tpu_torch.ops import minhash_kernel as mk
     from hashreadmapper_tpu_torch.ops import shd_kernel as sk
     from hashreadmapper_tpu_torch.ops import vote_kernel as vk
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
     cases = []
+    k = 16
 
-    def minhash_case(name, mode, n, maxlen, f, lengths):
+    def n_valid(lens, maxlen):
+        return int(np.maximum(np.minimum(lens, maxlen) - k + 1, 0).sum())
+
+    def minhash_case(mode, n, maxlen, f, lengths):
         bases = torch.from_numpy(rng.integers(0, 4, size=(n, maxlen),
                                               dtype=np.int8)).to(dev)
         lens = torch.from_numpy(lengths.astype(np.int32)).to(dev)
         hid = torch.arange(f, dtype=torch.int64, device=dev)
-        args = (bases, lens, 16, hid, mode)
-        return (name, f"N={n} L={maxlen} F={f} mode={mode}",
-                lambda: mk.sigs_from_bases(*args),
-                lambda: mk.sigs_from_bases_plain(*args))
+        args = (bases, lens, k, hid, mode)
+        hashes = n_valid(lengths, maxlen) * f * (2 if mode == "both" else 1)
+        return dict(key="minhash", name="minhash",
+                    shape=f"N={n} L={maxlen} F={f} mode={mode}",
+                    kernel=lambda: mk.sigs_from_bases(*args),
+                    plain=lambda: mk.sigs_from_bases_plain(*args),
+                    bound=lambda out: (nbytes(bases, lens, hid, *out),
+                                       hashes * OPS_PER_HASH))
 
     read_lens = np.full(4096, 100)
     read_lens[::97] = rng.integers(0, 128, size=len(read_lens[::97]))
     win_lens = np.full(4096, 128)
     win_lens[-5:] = [0, 15, 16, 17, 60]
-    cases.append(("minhash",) + minhash_case("minhash", "both", 4096, 128,
-                                              16, read_lens))
-    cases.append(("minhash",) + minhash_case("minhash", "fwd", 4096, 128,
-                                              16, win_lens))
+    cases.append(minhash_case("both", 4096, 128, 16, read_lens))
+    cases.append(minhash_case("fwd", 4096, 128, 16, win_lens))
+    cases.append(minhash_case("canon", 4096, 128, 16, read_lens))
 
     def vote_case(f, n, c, cap):
         ids = rng.integers(0, 600, size=(f, n, c)).astype(np.int64)
         fill = rng.integers(0, c + 1, size=(f, n, 1))
         ids = np.where(np.arange(c)[None, None, :] < fill, ids, 0xFFFFFFFF)
         cand = torch.from_numpy(np.sort(ids, axis=2)).to(dev)
-        return ("vote", f"F={f} N={n} C={c} cap={cap}",
-                lambda: vk.vote_candidates_fnc(cand, 4, cap),
-                lambda: vk.vote_candidates_fnc_plain(cand, 4, cap))
+        # merging F ascending lists of C ids: F*C*log2(F) 64-bit
+        # compare-and-selects (2 operations each), then one run-length
+        # count and one threshold test per id
+        ops = n * f * c * (2 * int(np.log2(f)) + 2)
+        return dict(key="vote", name="vote",
+                    shape=f"F={f} N={n} C={c} cap={cap}",
+                    kernel=lambda: vk.vote_candidates_fnc(cand, 4, cap),
+                    plain=lambda: vk.vote_candidates_fnc_plain(cand, 4, cap),
+                    bound=lambda out: (nbytes(cand, *out), ops))
 
-    cases.append(("vote",) + vote_case(32, 4096, 16, 8))
-    cases.append(("vote",) + vote_case(32, 4096, 64, 32))
+    cases.append(vote_case(32, 4096, 16, 8))
+    cases.append(vote_case(64, 4096, 16, 8))       # 4F under --undirectional
+    cases.append(vote_case(32, 4096, 64, 32))
 
     p, wr, wa, n_shifts = 16384, 4, 10, 160
     r32 = lambda *s: torch.from_numpy(rng.integers(
@@ -197,31 +290,108 @@ def phase1():
     bit0 = rng.integers(0, 32, size=p)
     bounds = np.stack([bit0, bit0 + rng.integers(28, 129, size=p)], axis=1)
     bounds[-300:] = -1
-    shd_args = (r32(p, 2, wa), r32(p, 2, wa), r32(p, 2, wr), r32(p, 2, wr),
-                r32(p, wr), torch.from_numpy(bounds.astype(np.int32)).to(dev),
-                n_shifts, wa, wr)
-    cases.append(("shd_best", "shd_best",
-                  f"P={p} wr={wr} wa={wa} n_shifts={n_shifts}",
-                  lambda: sk.shd_best(*shd_args),
-                  lambda: sk.shd_best_plain(*shd_args)))
+    planes = (r32(p, 2, wa), r32(p, 2, wa), r32(p, 2, wr), r32(p, 2, wr),
+              r32(p, wr))
+    tbounds = torch.from_numpy(bounds.astype(np.int32)).to(dev)
+    shd_args = planes + (tbounds, n_shifts, wa, wr)
+    shifts_run = int(np.where(bounds[:, 0] >= 0,
+                              bounds[:, 1] - bounds[:, 0] + 1, 0).sum())
+    cases.append(dict(
+        key="shd_best", name="shd_best",
+        shape=f"P={p} wr={wr} wa={wa} n_shifts={n_shifts}",
+        kernel=lambda: sk.shd_best(*shd_args),
+        plain=lambda: sk.shd_best_plain(*shd_args),
+        bound=lambda out: (nbytes(*planes, tbounds, *out),
+                           2 * shifts_run * wr * OPS_PER_SHD_WORD)))
+
+    # the two kernels without a caller on the main path, at its shapes
+    n, npos, f = 4096, 128 - k + 1, 16
+    bases_np = rng.integers(0, 4, size=(n, 128), dtype=np.int8)
+    kmers_np = np.zeros((n, npos), np.int64)
+    for i in range(k):
+        kmers_np |= bases_np[:, i:i + npos].astype(np.int64) << (
+            2 * (k - 1 - i))
+    kmers = torch.from_numpy(kmers_np).to(dev)
+    klens = torch.from_numpy(read_lens.astype(np.int32)).to(dev)
+    hid = torch.arange(f, dtype=torch.int64, device=dev)
+    sig_args = (kmers, klens, k, hid)
+    # the kernel reads the k-mers as 32-bit words
+    cases.append(dict(
+        key="sig_min_murmur", name="sig_min_murmur",
+        shape=f"N={n} P={npos} (L=128, k={k}) F={f}",
+        kernel=lambda: mk.sig_min_murmur(*sig_args),
+        plain=lambda: mk.sig_min_murmur_plain(*sig_args),
+        bound=lambda out: (nbytes(kmers) // 2 + nbytes(klens, hid, *out),
+                           n_valid(read_lens, 128) * f * OPS_PER_HASH)))
+    ham_args = planes + (n_shifts, wa, wr)
+    cases.append(dict(
+        key="shd_hamming_matrix", name="shd_hamming_matrix",
+        shape=f"P={p} wa={wa} wr={wr} n_shifts={n_shifts}",
+        kernel=lambda: sk.shd_hamming_matrix(*ham_args),
+        plain=lambda: sk.shd_hamming_matrix_plain(*ham_args),
+        bound=lambda out: (nbytes(*planes, *out),
+                           2 * p * n_shifts * wr * OPS_PER_SHD_WORD)))
 
     cases.extend(step2_cases(rng, dev))
     records = {}
-    for key, name, shape, kernel, plain, *rest in cases:
-        view = rest[0] if rest else (lambda out: out)
-        got = kernel()
+    for case in cases:
+        name, shape = case["name"], case["shape"]
+        view = case.get("view", lambda out: out)
+        got = case["kernel"]()
         torch.cuda.synchronize()
-        want = plain()
+        want = case["plain"]()
         err = max_abs_err(view(got), view(want))
-        ms, plain_ms = time_ms(kernel), time_ms(plain)
+        ms, plain_ms = time_ms(case["kernel"]), time_ms(case["plain"])
+        outs = got if isinstance(got, tuple) else (got,)
+        bound_ms, bound_by = bound(*case["bound"](outs))
+        library_ms = None
+        if "library" in case:
+            lib_out = case["library"]()
+            if max_abs_err(lib_out, view(got)) != 0:
+                raise AssertionError(f"{name}: the library call computes "
+                                     "another function")
+            library_ms = time_ms(case["library"])
         log(f"phase1 {name} {shape}: max_abs_err {err} (exact required), "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.5f} ms by {bound_by}, library "
+            f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}")
         if err != 0:
             raise AssertionError(f"{name} {shape}: kernel != plain "
                                  f"(max_abs_err {err})")
-        rec = records.setdefault(key, {"max_abs_err": 0, "ms": ms,
-                                       "plain_ms": plain_ms, "shape": shape})
+        rec = records.setdefault(case["key"], {
+            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "shape": shape,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms})
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
+
+    # the kernels that superseded the two, on the card; these launches
+    # are the two kernels' count in the kernels line (they have no caller
+    # on the main path, as in the JAX package)
+    mk.sig_min_murmur.launches = sk.shd_hamming_matrix.launches = 0
+    want = mk.sigs_from_bases(torch.from_numpy(bases_np).to(dev), klens, k,
+                              hid, "fwd")
+    if not torch.equal(mk.sig_min_murmur(*sig_args), want):
+        raise AssertionError("sig_min_murmur on the forward k-mer lows != "
+                             "sigs_from_bases(mode='fwd')")
+    inside = tbounds.clamp(max=n_shifts - 1)
+    ham = sk.shd_hamming_matrix(*ham_args).to(torch.int64)
+    s = torch.arange(n_shifts, device=dev)[None, None, :]
+    ham = torch.where((s >= inside[:, 0, None, None])
+                      & (s <= inside[:, 1, None, None]), ham, sk.BIG)
+    best = ham.amin(dim=2)
+    first = (ham == best[:, :, None]).to(torch.int64).argmax(dim=2)
+    shift = torch.where(best < sk.BIG, first, inside[:, :1].to(torch.int64))
+    got = torch.stack([best[:, 0], shift[:, 0], best[:, 1], shift[:, 1]],
+                      dim=1).to(torch.int32)
+    if not torch.equal(got, sk.shd_best(*planes, inside, n_shifts, wa, wr)):
+        raise AssertionError("row minimum of shd_hamming_matrix != shd_best")
+    torch.cuda.synchronize()
+    log("phase1 cross-checks on the card: sig_min_murmur(forward k-mer "
+        "lows) == sigs_from_bases('fwd'); min over [min_shift, max_shift] "
+        "of shd_hamming_matrix, earliest shift on ties == shd_best")
+    for key, fn in (("sig_min_murmur", mk.sig_min_murmur),
+                    ("shd_hamming_matrix", sk.shd_hamming_matrix)):
+        records[key]["launches"] = fn.launches
     return records
 
 
@@ -277,17 +447,32 @@ def step2_cases(rng, dev):
     score1 = swk.pass_batched_plain(*fwd)[0]
     rev = (read_at, rl, seg, ref_t.flip(0).contiguous(), fl, score1, 1, lq,
            False)
-    cases = [("sw_pass", f"sw_pass {name}", f"P={p} S=8 n_cols={lq}",
-              lambda a=a: swk.pass_batched(*a),
-              lambda a=a: swk.pass_batched_plain(*a))
+    # per pair, fl columns of rl query cells, about 10 operations a cell
+    # (profile compare, add, three max, two saturating subtracts, the
+    # column maximum); the forward pass never terminates early
+    cells = int((rl.to(torch.int64) * fl.to(torch.int64)).sum())
+    cases = [dict(key="sw_pass", name=f"sw_pass {name}",
+                  shape=f"P={p} S=8 n_cols={lq}",
+                  kernel=lambda a=a: swk.pass_batched(*a),
+                  plain=lambda a=a: swk.pass_batched_plain(*a),
+                  bound=lambda out, a=a: (nbytes(*a[:6], *out), cells * 10))
              for name, a in (("forward, max_column", fwd),
                              ("reverse, terminate=score1", rev))]
     begin = torch.from_numpy(rng.integers(-1, lq + 1, p).astype(
         np.int32)).to(dev)
-    cases.append(("shift_sub", "shift_sub", f"L={lq} P={p} size={lq} "
-                  "begins in [-1, 128]",
-                  lambda: bk.shift_sub(read_t, begin, lq),
-                  lambda: bk.shift_sub_plain(read_t, begin, lq)))
+    # the one PyTorch call: a gather over the input padded with code 4,
+    # by the index that the shift amounts give
+    eff = begin.to(torch.int64) & bk.shift_bits_mask(2 * lq)
+    src = torch.arange(lq, device=dev)[:, None] + eff[None, :]
+    padded = torch.cat([read_t, torch.full_like(read_t, 4),
+                        torch.full_like(read_t, 4)])
+    cases.append(dict(key="shift_sub", name="shift_sub",
+                      shape=f"L={lq} P={p} size={lq} begins in [-1, 128]",
+                      kernel=lambda: bk.shift_sub(read_t, begin, lq),
+                      plain=lambda: bk.shift_sub_plain(read_t, begin, lq),
+                      library=lambda: torch.gather(padded, 0, src),
+                      bound=lambda out: (nbytes(read_t, begin, *out),
+                                         lq * p)))
     s10 = swdev.ssw_score_packed_t(read_t, rl, ref_t, fl,
                                    (rl // 2).clamp(min=15), lq)
     qb, qe, rb, re = s10[6], s10[2], s10[5], s10[1]
@@ -300,41 +485,62 @@ def step2_cases(rng, dev):
     done = (~need | torch.from_numpy(
         rng.random(p) < 0.25).to(dev)).to(torch.int32)
     live = done == 0
+    n_live = int(live.sum())
+    # the work of the pairs that are not done: in-band cells of rows i < m,
+    # band [max(0, i - bw), min(r - 1, i + bw)], about 12 operations a
+    # cell (score, three max, the two scans' steps), 20 when it also packs
+    # the direction and the run length
+    i = torch.arange(lq, device=dev)[None, :]
+    mm, rr, bb = (x.to(torch.int64)[:, None] for x in (m, r, bw))
+    band = (torch.minimum(rr - 1, i + bb) - (i - bb).clamp(min=0)
+            + 1).clamp(min=0)
+    band_cells = int(torch.where((i < mm) & live[:, None], band, 0).sum())
 
     def view(out):
         # the kernel never writes a done pair's directions
         best, dirs = out
         return best if dirs is None else (best, dirs[live])
+
+    def fill_bound(out, emit):
+        pair_bytes = 4 * (lq + lq) + (2 * lq * lq if emit else 0)
+        return (nbytes(m, r, bw, done, out[0]) + n_live * pair_bytes,
+                band_cells * (20 if emit else 12))
     for emit in (False, True):
         args = (sub_q, sub_r, m, r, bw, done, lq, emit)
-        cases.append(("fill_pass", "fill_pass",
-                      f"P={p} m_max=NL={lq} emit_dirs={emit}, "
-                      f"{int(live.sum())} pairs not done",
-                      lambda a=args: bk.fill_pass(*a),
-                      lambda a=args: bk.fill_pass_plain(*a), view))
+        cases.append(dict(key="fill_pass", name="fill_pass",
+                          shape=f"P={p} m_max=NL={lq} emit_dirs={emit}, "
+                                f"{n_live} pairs not done",
+                          kernel=lambda a=args: bk.fill_pass(*a),
+                          plain=lambda a=args: bk.fill_pass_plain(*a),
+                          view=view,
+                          bound=lambda out, e=emit: fill_bound(out, e)))
     return cases
+
+
+def write_fastq(path, reads):
+    seqs = ACGT[reads]
+    qual = b"I" * reads.shape[1]
+    with gzip.open(path, "wb", compresslevel=1) as fh:
+        fh.write(b"".join(b"@r%d\n%s\n+\n%s\n" % (i, seqs[i].tobytes(), qual)
+                          for i in range(len(reads))))
 
 
 def write_dataset(tmp, rng):
     """8 Mbp genome FASTA + 49,152 planted reads FASTQ.gz."""
-    chrom = rng.integers(0, 4, size=8_000_000, dtype=np.int8)
+    chrom = rng.integers(0, 4, size=GENOME_LEN, dtype=np.int8)
     text = ACGT[chrom].tobytes()
     with open(os.path.join(tmp, "g.fa"), "wb") as fh:
         fh.write(b">chrB synthetic 8 Mbp\n")
         fh.write(b"\n".join(text[i:i + 80] for i in range(0, len(text), 80)))
         fh.write(b"\n")
     reads, starts, junk = planted_reads(rng, chrom, N_READS, READ_LEN)
-    seqs = ACGT[reads]
-    qual = b"I" * READ_LEN
-    with gzip.open(os.path.join(tmp, "reads.fq.gz"), "wb",
-                   compresslevel=1) as fh:
-        fh.write(b"".join(b"@r%d\n%s\n+\n%s\n" % (i, seqs[i].tobytes(), qual)
-                          for i in range(N_READS)))
-    return reads, starts, junk
+    write_fastq(os.path.join(tmp, "reads.fq.gz"), reads)
+    return reads, starts, junk, chrom
 
 
 def kernel_wrappers():
-    """The six kernels' wrappers, by the names of the kernels JSON."""
+    """The wrappers of the six kernels on the CLI's path, by the names of
+    the kernels JSON."""
     from hashreadmapper_tpu_torch.ops.bandtb_kernel import fill_pass, shift_sub
     from hashreadmapper_tpu_torch.ops.minhash_kernel import sigs_from_bases
     from hashreadmapper_tpu_torch.ops.shd_kernel import shd_best
@@ -345,28 +551,81 @@ def kernel_wrappers():
             "shift_sub": shift_sub, "fill_pass": fill_pass}
 
 
+def counted(label, fn):
+    """fn() with the six kernels' launch counts set to 0 just before and
+    read just after: (result, seconds, launches).  Fails when a kernel of
+    the path was never launched, or when jax or the JAX package got
+    imported."""
+    kernels = kernel_wrappers()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = fn()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    log(f"{label} kernel launches: {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"{label}: a kernel of the path never "
+                             f"launched: {launches}")
+    check_no_jax()
+    return res, wall, launches
+
+
+def check_no_jax():
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "jaxlib", "hashreadmapper_tpu")]
+    if bad:
+        raise AssertionError(f"imported: {bad}")
+
+
+def sam_fractions(label, sam_path, n_reads, starts, junk):
+    """The SAM checks: header, one row per read, planted mapped and
+    concordant fractions (asserted); returns (mapped, concordant) [N]."""
+    with open(sam_path) as fh:
+        sam = fh.read()
+    if not sam.startswith("@HD\tVN:1.4"):
+        raise AssertionError("SAM header does not start with @HD\\tVN:1.4")
+    rows = [ln.split("\t") for ln in sam.split("\n")
+            if ln and not ln.startswith("@")]
+    if len(rows) != n_reads:
+        raise AssertionError(f"{len(rows)} SAM rows for {n_reads} reads")
+    ids = np.array([int(r[0]) for r in rows])
+    mapped = np.zeros(n_reads, bool)
+    concordant = np.zeros(n_reads, bool)
+    mapped[ids] = [r[11].startswith("Yf:i:") and "YZ:A:" in r[11]
+                   for r in rows]
+    concordant[ids] = [r[2].split()[0] == "chrB"
+                       and abs(int(r[3]) - int(starts[i])) <= 128
+                       for r, i in zip(rows, ids)]
+    frac = check_fractions(label, mapped, concordant, junk)
+    return mapped, concordant, frac
+
+
+def launches_per_batch(label, mapper, padded, lens):
+    """Launch counts of one steady map_reads(with_scores) over the pool,
+    per 4,096-read batch."""
+    kernels = kernel_wrappers()
+    for k in kernels.values():
+        k.launches = 0
+    mapper.map_reads(padded, lens, with_scores=True)
+    n_batches = -(-len(lens) // mapper.opts.batchsize)
+    per = {name: k.launches / n_batches for name, k in kernels.items()}
+    log(f"{label} launches per {mapper.opts.batchsize}-read batch "
+        f"(map_reads with scores, {n_batches} batches): {per}")
+    return per
+
+
 def phase2(tmp):
     from hashreadmapper_tpu_torch import cli
     from hashreadmapper_tpu_torch.pipeline.driver import run_pipeline
-    kernels = kernel_wrappers()
     rng = np.random.default_rng(2)
-    reads, starts, junk = write_dataset(tmp, rng)
+    reads, starts, junk, chrom = write_dataset(tmp, rng)
     out = os.path.join(tmp, "out")
     argv = FLAGSHIP + ["--genomefile", os.path.join(tmp, "g.fa"), "-i",
                        os.path.join(tmp, "reads.fq.gz")]
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.values():
-        k.launches = 0
-    t0 = time.perf_counter()
-    res = cli.run(argv + ["-o", out])
-    wall = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in kernels.items()}
-    log(f"phase2 kernel launches in the CLI run: {launches}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path never launched: "
-                             f"{launches}")
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    res, wall, launches = counted("phase2 CLI run",
+                                  lambda: cli.run(argv + ["-o", out]))
     log(f"phase2 whole CLI run, device STEP 2: {wall:.3f} s, phase timers "
         f"{res['timers']}, max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} B")
@@ -390,25 +649,9 @@ def phase2(tmp):
         log(f"phase2 SAM and VCF: fused device STEP 2 == {label}, byte for "
             "byte")
 
-    with open(out + ".SAM") as fh:
-        sam = fh.read()
-    if not sam.startswith("@HD\tVN:1.4"):
-        raise AssertionError("SAM header does not start with @HD\\tVN:1.4")
-    rows = [ln.split("\t") for ln in sam.split("\n")
-            if ln and not ln.startswith("@")]
-    if len(rows) != N_READS:
-        raise AssertionError(f"{len(rows)} SAM rows for {N_READS} reads")
     if not os.path.exists(out + ".VCF"):
         raise AssertionError("no VCF written")
-    ids = np.array([int(r[0]) for r in rows])
-    mapped = np.zeros(N_READS, bool)
-    concordant = np.zeros(N_READS, bool)
-    mapped[ids] = [r[11].startswith("Yf:i:") and "YZ:A:" in r[11]
-                   for r in rows]
-    concordant[ids] = [r[2].split()[0] == "chrB"
-                       and abs(int(r[3]) - int(starts[i])) <= 128
-                       for r, i in zip(rows, ids)]
-    frac = check_fractions("phase2", mapped, concordant, junk)
+    _, _, frac = sam_fractions("phase2", out + ".SAM", N_READS, starts, junk)
 
     mapper = res["mapper"]
     lens = np.full(N_READS, READ_LEN, np.int32)
@@ -446,56 +689,197 @@ def phase2(tmp):
               "walk status 2 (over 48 entries)":
                   int((mapped & (st == 2)).sum())}
     log(f"phase2 STEP-2 pairs: {counts}")
-    return launches, res, reads, frac
+    per_batch = launches_per_batch("phase2", mapper, padded, lens)
+    return launches, per_batch, res, reads, chrom
 
 
-def phase3(res, reads, devices=("cuda", "cpu")):
+def build_mappers(label, genome, flags, devices=("cuda", "cpu")):
+    """One CoarseMapper per device over the same genome and flags."""
     from hashreadmapper_tpu_torch import cli
-    from hashreadmapper_tpu_torch.pipeline.engine import (CoarseMapper,
-                                                          fused_step2_scores)
-    n, n_step2 = 8192, 1024
+    from hashreadmapper_tpu_torch.pipeline.engine import CoarseMapper
+    mappers = {}
+    for dev in devices:
+        opts, _ = cli.options_from_args(flags + ["--device", dev])
+        t0 = time.perf_counter()
+        mappers[dev] = CoarseMapper(genome, opts, dev)
+        log(f"{label} {dev}: index built in {time.perf_counter() - t0:.3f} s")
+    return mappers
+
+
+def card_equals_cpu(label, mappers, reads, n, n_step2):
+    """The same reads through the card's mapper and the CPU's (plain
+    versions): identical packed [B, 7] rows (strand column included) and
+    [5] overflow vectors of the first n reads, and, with n_step2 > 0,
+    identical fused STEP-2 bundles of the first n_step2 reads."""
+    from hashreadmapper_tpu_torch.pipeline.engine import fused_step2_scores
+    devices = list(mappers)
+    n = min(n, len(reads))
+    n_step2 = min(n_step2, n, min(m.opts.batchsize for m in mappers.values()))
     lens = np.full(n, READ_LEN, np.int32)
     outs, step2 = {}, {}
-    for dev in devices:
-        opts, _ = cli.options_from_args(FLAGSHIP + ["--device", dev])
+    for dev, m in mappers.items():
         t0 = time.perf_counter()
-        m = CoarseMapper(res["genome"], opts, dev)
         b, l, v, n_pad = m.stage_reads_device(reads[:n], lens)
-        bsz = opts.batchsize
+        bsz = m.opts.batchsize
         parts = [m._map_batch(b[s:s + bsz], l[s:s + bsz], v[s:s + bsz])
                  for s in range(0, n_pad, bsz)]
         outs[dev] = [(p.cpu(), o.cpu()) for p, o in parts]
         t1 = time.perf_counter()
-        k = slice(0, n_step2)
-        step2[dev] = [x.cpu() for x in fused_step2_scores(
-            opts, m.table.chrom_offset, m.table.chrom_len, m.genome_s2(),
-            b[k], l[k], parts[0][0][k])]
-        log(f"phase3 {dev}: index + {n} reads in {t1 - t0:.3f} s, fused "
-            f"STEP 2 of {n_step2} reads in {time.perf_counter() - t1:.3f} s")
+        if n_step2:
+            k = slice(0, n_step2)
+            step2[dev] = [x.cpu() for x in fused_step2_scores(
+                m.opts, m.table.chrom_offset, m.table.chrom_len,
+                m.genome_s2(), b[k], l[k], parts[0][0][k])]
+        log(f"{label} {dev}: {n} reads in {t1 - t0:.3f} s, fused STEP 2 of "
+            f"{n_step2} reads in {time.perf_counter() - t1:.3f} s")
     card, host = (outs[d] for d in devices)
     for i, ((pc, oc), (pp, op)) in enumerate(zip(card, host)):
         if not torch.equal(pc, pp) or not torch.equal(oc, op):
             bad = int((pc != pp).any(dim=1).sum())
-            raise AssertionError(f"phase3 batch {i}: card != CPU ({bad} rows "
-                                 f"differ; overflow {oc.tolist()} vs "
+            raise AssertionError(f"{label} batch {i}: card != CPU ({bad} "
+                                 f"rows differ; overflow {oc.tolist()} vs "
                                  f"{op.tolist()})")
-    log(f"phase3 card == CPU: {len(card)} batches of [B, 7] rows "
+    rows = torch.cat([p for p, _ in card])[:n]
+    log(f"{label} card == CPU: {len(card)} batches of [B, 7] rows "
         f"and [5] overflow vectors identical; overflow "
-        f"{[o.tolist() for _, o in card]}")
+        f"{[o.tolist() for _, o in card]}; mapped "
+        f"{int((rows[:, 0] != 3).sum())} of {n}, strand column set in "
+        f"{int((rows[:, 6] != 0).sum())} rows")
+    if not n_step2:
+        return rows
     names = ("scores [10, 2B]", "tb_ops [2B, 48]", "tb_status [2B]")
     for name, c, h in zip(names, *(step2[d] for d in devices)):
         if c.dtype != h.dtype or not torch.equal(c, h):
-            raise AssertionError(f"phase3 fused STEP 2 {name}: card != CPU")
+            raise AssertionError(f"{label} fused STEP 2 {name}: card != CPU")
     sc, _, st = step2[devices[0]]
-    log(f"phase3 card == CPU: fused STEP 2 of the first {n_step2} reads, "
+    ga = (rows[:n_step2, 6] != 0) & (rows[:n_step2, 0] == 1)
+    log(f"{label} card == CPU: fused STEP 2 of the first {n_step2} reads, "
         f"{names} identical ({int((sc[9] == 0).sum())} pairs not "
         f"diag-certified, walk status counts "
-        f"{torch.bincount(st.to(torch.int64), minlength=3).tolist()})")
+        f"{torch.bincount(st.to(torch.int64), minlength=3).tolist()}, "
+        f"{int(ga.sum())} reads with G->A pairs)")
+    return rows
+
+
+def phase3(res, reads):
+    mappers = build_mappers("phase3", res["genome"], FLAGSHIP)
+    card_equals_cpu("phase3", mappers, reads, 8192, 1024)
+    return mappers
+
+
+def phase5(tmp, res, chrom, mappers):
+    """--threeN --undirectional at the flagship width on four-strand
+    reads; the directional run of the same reads beside it."""
+    from hashreadmapper_tpu_torch import cli
+    rng = np.random.default_rng(5)
+    reads, starts, junk, kind = four_strand_reads(rng, chrom, N_READS,
+                                                  READ_LEN)
+    fq = os.path.join(tmp, "reads_und.fq.gz")
+    write_fastq(fq, reads)
+    argv = FLAGSHIP + ["--genomefile", os.path.join(tmp, "g.fa"), "-i", fq]
+    out = os.path.join(tmp, "out_und")
+    res_u, wall, launches = counted(
+        "phase5 --undirectional CLI run",
+        lambda: cli.run(argv + ["--undirectional", "-o", out]))
+    stats = res_u["results"].stats
+    log(f"phase5 whole CLI run, --threeN --undirectional, device STEP 2: "
+        f"{wall:.3f} s, phase timers {res_u['timers']}; overflow counters "
+        f"{ {k: stats[k] for k in OVERFLOW_KEYS} }")
+    mapped, concordant, frac = sam_fractions("phase5 all four strands",
+                                             out + ".SAM", N_READS, starts,
+                                             junk)
+    out_d = os.path.join(tmp, "out_dir")
+    t0 = time.perf_counter()
+    cli.run(argv + ["-o", out_d])
+    log(f"phase5 the directional run of the same reads: "
+        f"{time.perf_counter() - t0:.3f} s")
+    with open(out_d + ".SAM") as fh:
+        rows = [ln.split("\t") for ln in fh.read().split("\n")
+                if ln and not ln.startswith("@")]
+    mapped_d = np.zeros(N_READS, bool)
+    mapped_d[[int(r[0]) for r in rows]] = [r[11].startswith("Yf:i:")
+                                           for r in rows]
+    names = ("forward C->T", "reverse-complemented C->T", "forward G->A "
+             "(PBAT)", "reverse-complemented G->A (PBAT)")
+    per_strand = {}
+    for k, name in enumerate(names):
+        sel = (kind == k) & ~junk
+        und_k, dir_k = float(mapped[sel].mean()), float(mapped_d[sel].mean())
+        per_strand[name] = (und_k, dir_k)
+        log(f"phase5 {name}: planted mapped {und_k:.6f} with "
+            f"--undirectional, {dir_k:.6f} directional; concordant of "
+            f"mapped {float(concordant[sel & mapped].mean()):.6f}")
+        if k >= 2 and und_k < 0.85:
+            raise AssertionError(f"phase5 {name}: only {und_k:.4f} of "
+                                 "planted reads mapped (< 0.85)")
+        if k >= 2 and dir_k > 0.5 * und_k:
+            raise AssertionError(f"phase5 {name}: the directional mode maps "
+                                 f"{dir_k:.4f} of them: nothing for "
+                                 "--undirectional to add")
+    bs = res_u["results"].bs_strand
+    ori = res_u["results"].orientation
+    log(f"phase5 strand column: {int((bs != 0).sum())} reads in the mirrored "
+        f"space, {int(((bs != 0) & (ori == 1)).sum())} of them FORWARD "
+        "(their STEP-2 pairs are G->A)")
+
+    lens = np.full(N_READS, READ_LEN, np.int32)
+    padded = np.zeros((N_READS, 128), np.int8)
+    padded[:, :READ_LEN] = reads
+    per_batch = launches_per_batch("phase5", res_u["mapper"], padded, lens)
+    # card == CPU on the directional mappers' indexes (the 2F tables are
+    # the same), switched to the undirectional step
+    for m in mappers.values():
+        m.opts.undirectional = True
+    try:
+        rows = card_equals_cpu("phase5", mappers, reads, 1024, 1024)
+    finally:
+        for m in mappers.values():
+            m.opts.undirectional = False
+    if not (rows[:, 6] != 0).any():
+        raise AssertionError("phase5: no row carries the mirrored strand")
+    return launches, per_batch, frac, per_strand
+
+
+def phase6(tmp, res, chrom):
+    """Parity mode (canonical k-mers, F tables, no --threeN) on 16,384
+    unconverted reads of the same genome."""
+    from hashreadmapper_tpu_torch import cli
+    rng = np.random.default_rng(6)
+    reads, starts, junk = unconverted_reads(rng, chrom, N_PARITY, READ_LEN)
+    fq = os.path.join(tmp, "reads_par.fq.gz")
+    write_fastq(fq, reads)
+    # parity mode has F = 16 tables where 3N has 2F = 32: the vote keeps
+    # the flagship threshold's share of the tables (4 of 32 -> 2 of 16)
+    flags = [f for f in FLAGSHIP if f != "--threeN"]
+    flags[flags.index("--minTableHits") + 1] = "2"
+    out = os.path.join(tmp, "out_par")
+    res_p, wall, launches = counted(
+        "phase6 parity CLI run",
+        lambda: cli.run(flags + ["--genomefile", os.path.join(tmp, "g.fa"),
+                                 "-i", fq, "-o", out]))
+    stats = res_p["results"].stats
+    log(f"phase6 whole CLI run, parity mode, device STEP 2: {wall:.3f} s, "
+        f"phase timers {res_p['timers']}; {res_p['mapper'].index.num_tables}"
+        f" tables; overflow counters "
+        f"{ {k: stats[k] for k in OVERFLOW_KEYS} }")
+    _, _, frac = sam_fractions("phase6", out + ".SAM", N_PARITY, starts, junk)
+    # the flagship's own threshold (4 of 16 tables), for comparison only
+    lens = np.full(N_PARITY, READ_LEN, np.int32)
+    padded = np.zeros((N_PARITY, 128), np.int8)
+    padded[:, :READ_LEN] = reads
+    res_p["mapper"].opts.min_table_hits = 4
+    r4 = res_p["mapper"].map_reads(padded, lens)
+    res_p["mapper"].opts.min_table_hits = 2
+    log(f"phase6 with --minTableHits 4 instead: planted mapped "
+        f"{float((r4.orientation != 3)[~junk].mean()):.6f}")
+    mappers = build_mappers("phase6", res["genome"], flags)
+    card_equals_cpu("phase6", mappers, reads, 1024, 0)
+    return launches, frac
 
 
 def phase4(device="cuda"):
-    from hashreadmapper_tpu.io.genome import Genome
     from hashreadmapper_tpu_torch import cli
+    from hashreadmapper_tpu_torch.io.genome import Genome
     from hashreadmapper_tpu_torch.pipeline.engine import CoarseMapper
     rng = np.random.default_rng(4)
     chrom = rng.integers(0, 4, size=CHR1_LEN, dtype=np.int8)
@@ -558,28 +942,50 @@ def main():
     smi = phase0()
     records = phase1()
     with tempfile.TemporaryDirectory() as tmp:
-        launches, res, reads, _ = phase2(tmp)
-        phase3(res, reads)
+        launches, per_batch, res, reads, chrom = phase2(tmp)
+        mappers = phase3(res, reads)
+        launches_und, per_batch_und, _, _ = phase5(tmp, res, chrom, mappers)
+        del mappers
+        launches_par, _ = phase6(tmp, res, chrom)
+    del res
     phase4()
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
-    meta = {"minhash": ("cuda", "hashreadmapper_tpu_torch/csrc/minhash.cu",
-                        "hashreadmapper_tpu/ops/minhash_pallas.py:171"),
-            "vote": ("cuda", "hashreadmapper_tpu_torch/csrc/vote.cu",
-                     "hashreadmapper_tpu/ops/vote_pallas.py:147"),
-            "shd_best": ("cuda", "hashreadmapper_tpu_torch/csrc/shd.cu",
-                         "hashreadmapper_tpu/ops/shd_pallas.py:217"),
-            "sw_pass": ("cuda", "hashreadmapper_tpu_torch/csrc/swdev.cu",
-                        "hashreadmapper_tpu/ops/swdev_pallas.py:237"),
-            "shift_sub": ("cuda", "hashreadmapper_tpu_torch/csrc/bandtb.cu",
-                          "hashreadmapper_tpu/ops/bandtb.py:123"),
-            "fill_pass": ("cuda", "hashreadmapper_tpu_torch/csrc/bandtb.cu",
-                          "hashreadmapper_tpu/ops/bandtb.py:355")}
-    kernels = [{"name": name, "route": route, "source": src,
-                "replaces": rep, "launches": launches[name],
-                **{k: records[name][k]
-                   for k in ("max_abs_err", "ms", "plain_ms")}}
-               for name, (route, src, rep) in meta.items()]
+    check_no_jax()
+    src = "hashreadmapper_tpu_torch/csrc/"
+    ref = "hashreadmapper_tpu/ops/"
+    meta = {"minhash": (src + "minhash.cu", ref + "minhash_pallas.py:171"),
+            "vote": (src + "vote.cu", ref + "vote_pallas.py:147"),
+            "shd_best": (src + "shd.cu", ref + "shd_pallas.py:217"),
+            "sig_min_murmur": (src + "minhash.cu",
+                               ref + "minhash_pallas.py:241"),
+            "shd_hamming_matrix": (src + "shd.cu", ref + "shd_pallas.py:256"),
+            "sw_pass": (src + "swdev.cu", ref + "swdev_pallas.py:237"),
+            "shift_sub": (src + "bandtb.cu", ref + "bandtb.py:123"),
+            "fill_pass": (src + "bandtb.cu", ref + "bandtb.py:355")}
+    kernels = []
+    for name, (source, replaces) in meta.items():
+        rec = records[name]
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces}
+        if name in launches:
+            # counted over the directional flagship CLI run; the other two
+            # paths' counts and the per-batch counts beside it
+            entry.update(
+                launches=launches[name], path="flagship --threeN CLI run",
+                launches_undirectional=launches_und[name],
+                launches_parity=launches_par[name],
+                launches_per_batch=per_batch[name],
+                launches_per_batch_undirectional=per_batch_und[name])
+        else:
+            # no caller on any path of the system (as in the JAX package):
+            # counted over phase 1's cross-checks against the kernels that
+            # superseded it
+            entry.update(launches=rec["launches"],
+                         path="kernel phase cross-check (no caller on the "
+                              "main path)")
+        entry.update({k: rec[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "shape")})
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Build and bind the hand-written CUDA kernels of csrc/.
+"""Build and bind the hand-written CUDA kernels of csrc/, and build the
+native host library from the repository's native/*.cpp.
 
 Each csrc/*.cu file is compiled by its own nvcc for sm_90a, all at once,
 and the objects are linked into ONE shared library with a plain C
@@ -7,6 +8,13 @@ minutes).  The library lands in build/ under a name that carries the hash
 of the sources and flags, so an edited kernel is rebuilt on its first use
 and an unchanged one is reused.  Nothing is built or loaded at import:
 the first CUDA launch calls load().
+
+The native host library (SSW finish, rescore, emitters, cuckoo table build,
+FASTA/FASTQ reader) is compiled by build_native() the same way with g++:
+one compiler per source, objects and library under per-process temporary
+names, the library moved into place with os.replace, so concurrent
+builds each produce a whole file and no process loads a partial one.
+native.py binds it.
 
 Every entry point takes device pointers and the CUDA stream as c_void_p,
 sizes as c_int, launches on that stream without synchronising, and returns
@@ -19,6 +27,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -28,6 +37,10 @@ import torch
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
+NATIVE_DIR = os.path.abspath(os.path.join(PKG_DIR, os.pardir, "native"))
+# native/Makefile's flags (less -Wall)
+CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17")
+CXX_LIBS = ("-lz",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -48,9 +61,14 @@ _SIGNATURES = {
     "hrm_shift_sub": [_P, _P, _P, _I, _I, _I, _I, _P],
     # read_t, ref_t, m, r, bw, done, best, dirs, p, m_max, nl, emit, stream
     "hrm_fill_pass": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # kmer_lo, lengths, hash_ids, out, n, npos, k, f, stream
+    "hrm_sig_min_murmur": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # a_hi, a_lo, r_hi, r_lo, mask, out, p, wa, wr, n_shifts, stream
+    "hrm_shd_hamming_matrix": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
+_native_lock = threading.Lock()
 _lib = None
 
 
@@ -76,7 +94,7 @@ def _nvcc() -> str:
                        "CUDA kernels cannot be built")
 
 
-def _run(cmds, verbose: bool) -> None:
+def _run(cmds, verbose: bool, what: str = "nvcc") -> None:
     """Run the commands concurrently; raise with the output of a failure."""
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True))
@@ -89,7 +107,7 @@ def _run(cmds, verbose: bool) -> None:
         elif verbose and out:
             print(out)
     if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        raise RuntimeError(f"{what} failed:\n" + "\n".join(failed))
 
 
 def build(verbose: bool = False) -> str:
@@ -113,6 +131,72 @@ def build(verbose: bool = False) -> str:
             if os.path.exists(o):
                 os.remove(o)
     os.replace(tmp, out)
+    return out
+
+
+def native_sources():
+    return sorted(glob.glob(os.path.join(NATIVE_DIR, "*.cpp"))
+                  + glob.glob(os.path.join(NATIVE_DIR, "*.h"))
+                  + glob.glob(os.path.join(NATIVE_DIR, "*.hpp")))
+
+
+def _cpu_tag() -> str:
+    """What -march=native resolves to here: the CPU's feature flags, so a
+    build directory carried to another machine is not reused there."""
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                if line.startswith(("flags", "Features")):
+                    return line
+    except OSError:
+        pass
+    return platform.machine() + platform.processor()
+
+
+def native_library_path(build_dir: str = BUILD_DIR) -> str:
+    h = hashlib.sha256(" ".join(CXX_FLAGS + CXX_LIBS).encode())
+    h.update(_cpu_tag().encode())
+    for path in native_sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(build_dir, f"libhrm_native_{h.hexdigest()[:16]}.so")
+
+
+def _cxx() -> str:
+    for cand in (os.environ.get("CXX"), "g++", "c++", "clang++"):
+        path = shutil.which(cand) if cand else None
+        if path:
+            return path
+    raise RuntimeError("no C++ compiler found (CXX, g++, c++, clang++): "
+                       "the native host library cannot be built")
+
+
+def build_native(build_dir: str = BUILD_DIR, verbose: bool = False) -> str:
+    """Compile native/*.cpp (one compiler per file, in parallel) and link
+    them into build_dir, unless the library for these sources exists.
+    Safe under concurrent builds: see the module docstring."""
+    out = native_library_path(build_dir)
+    with _native_lock:
+        if os.path.exists(out):
+            return out
+        srcs = [s for s in native_sources() if s.endswith(".cpp")]
+        if not srcs:
+            raise RuntimeError(f"no C++ sources under {NATIVE_DIR}")
+        os.makedirs(build_dir, exist_ok=True)
+        tmp = f"{out}.tmp{os.getpid()}"
+        cxx = _cxx()
+        objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
+        try:
+            _run([[cxx, *CXX_FLAGS, "-c", "-o", o, s]
+                  for s, o in zip(srcs, objs)], verbose, cxx)
+            _run([[cxx, "-shared", "-o", tmp, *objs, *CXX_LIBS]], verbose,
+                 cxx)
+            os.replace(tmp, out)
+        finally:
+            for path in (*objs, tmp):
+                if os.path.exists(path):
+                    os.remove(path)
     return out
 
 

@@ -69,7 +69,52 @@ __global__ void minhash_sigs_kernel(const int8_t* __restrict__ bases,
   if (mode == 1) o[f + fi] = static_cast<int64_t>(best_r & 0xFFFFFFFFULL);
 }
 
+// sig_min_murmur: the same minimum from precomputed k-mer low words.
+//
+// Replaces hashreadmapper_tpu/ops/minhash_pallas.py::sig_min_murmur
+// (_sig_kernel).  kmer_lo [N, P] holds the k-mers (k <= 16: the high word
+// is zero); position p is valid iff p <= min(len, P + k - 1) - k.  No
+// k-mer mask and no SENTINEL rows: the caller applies those.  One thread
+// per (sequence, hash id); the F threads of a sequence read the same
+// k-mer word (one broadcast load), so the kernel is bound by the hashes.
+__global__ void sig_min_murmur_kernel(const uint32_t* __restrict__ kmer_lo,
+                                      const int32_t* __restrict__ lengths,
+                                      const int64_t* __restrict__ hash_ids,
+                                      int64_t* __restrict__ out, int n,
+                                      int npos, int k, int f) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n * f) return;
+  const int row = idx / f;
+  const int fi = idx - row * f;
+  const int len = min(lengths[row], npos + k - 1);
+  const int last = min(len - k, npos - 1);       // last valid position
+  const uint32_t hid = static_cast<uint32_t>(hash_ids[fi]);
+  const uint32_t* km = kmer_lo + static_cast<size_t>(row) * npos;
+  uint64_t best = ~0ULL;
+  for (int p = 0; p <= last; ++p) {
+    const uint64_t h = fmix64(static_cast<uint64_t>(km[p]) + hid);
+    if (h < best) best = h;
+  }
+  out[idx] = static_cast<int64_t>(best & 0xFFFFFFFFULL);
+}
+
 }  // namespace
+
+extern "C" int hrm_sig_min_murmur(const void* kmer_lo, const void* lengths,
+                                  const void* hash_ids, void* out, int n,
+                                  int npos, int k, int f, void* stream) {
+  const int threads = 256;
+  const int total = n * f;
+  if (total > 0) {
+    sig_min_murmur_kernel<<<(total + threads - 1) / threads, threads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(kmer_lo),
+        static_cast<const int32_t*>(lengths),
+        static_cast<const int64_t*>(hash_ids), static_cast<int64_t*>(out),
+        n, npos, k, f);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int hrm_minhash_sigs(const void* bases, const void* lengths,
                                 const void* hash_ids, void* out, int n,

@@ -90,7 +90,66 @@ __global__ void shd_best_kernel(const uint32_t* __restrict__ a_hi,
   }
 }
 
+// shd_hamming_matrix: ham(s) for every shift s < n_shifts, no bounds and
+// no argmin.
+//
+// Replaces hashreadmapper_tpu/ops/shd_pallas.py::shd_hamming_matrix
+// (_shd_kernel).  Output [P, 2, n_shifts] int32, contiguous.  What bounds
+// it: the write of the matrix (2 * n_shifts words per pair against
+// 2 * (2 * wa + 2 * wr) + wr words read).  Design: one block per pair,
+// one thread per (orientation, shift), so a warp writes 32 consecutive
+// shifts (coalesced) and reads the pair's few anchor and read words from
+// L1; the same funnel-shift word construction as shd_best.
+__global__ void shd_hamming_matrix_kernel(
+    const uint32_t* __restrict__ a_hi, const uint32_t* __restrict__ a_lo,
+    const uint32_t* __restrict__ r_hi, const uint32_t* __restrict__ r_lo,
+    const uint32_t* __restrict__ mask, int32_t* __restrict__ out, int wa,
+    int wr, int n_shifts) {
+  const size_t pi = blockIdx.x;
+  const uint32_t* m = mask + pi * wr;
+  for (int idx = threadIdx.x; idx < 2 * n_shifts; idx += blockDim.x) {
+    const int o = idx >= n_shifts;
+    const int s = idx - o * n_shifts;
+    const int word = s >> 5;
+    const int bit = s & 31;
+    const size_t row = pi * 2 + o;
+    const uint32_t* ah = a_hi + row * wa + word;
+    const uint32_t* al = a_lo + row * wa + word;
+    const uint32_t* rh = r_hi + row * wr;
+    const uint32_t* rl = r_lo + row * wr;
+    int ham = 0;
+    uint32_t h0 = ah[0], l0 = al[0];
+    for (int w = 0; w < wr; ++w) {
+      const uint32_t h1 = ah[w + 1], l1 = al[w + 1];
+      const uint32_t sh = __funnelshift_r(h0, h1, bit);
+      const uint32_t sl = __funnelshift_r(l0, l1, bit);
+      ham += __popc(((sh ^ rh[w]) | (sl ^ rl[w])) & m[w]);
+      h0 = h1;
+      l0 = l1;
+    }
+    out[row * n_shifts + s] = ham;
+  }
+}
+
 }  // namespace
+
+extern "C" int hrm_shd_hamming_matrix(const void* a_hi, const void* a_lo,
+                                      const void* r_hi, const void* r_lo,
+                                      const void* mask, void* out, int p,
+                                      int wa, int wr, int n_shifts,
+                                      void* stream) {
+  if (p > 0 && n_shifts > 0) {
+    const int need = ((2 * n_shifts + 31) / 32) * 32;
+    const int threads = need < 256 ? need : 256;
+    shd_hamming_matrix_kernel<<<p, threads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(a_hi), static_cast<const uint32_t*>(a_lo),
+        static_cast<const uint32_t*>(r_hi), static_cast<const uint32_t*>(r_lo),
+        static_cast<const uint32_t*>(mask), static_cast<int32_t*>(out), wa,
+        wr, n_shifts);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int hrm_shd_best(const void* a_hi, const void* a_lo,
                             const void* r_hi, const void* r_lo,

@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..ops import u64
 from ..ops.vote_kernel import vote_candidates_fnc
 
@@ -107,10 +108,8 @@ def build_cuckoo_arrays(keys_np: np.ndarray, offs_np: np.ndarray,
                         nk: np.ndarray, v_cols: int):
     """((keys [F, 2^bits] uint32, payload [F, 2^bits] uint32, bits,
     (seed1, seed2)), None) or (None, reason); the same seeds, sizes and
-    payload packing as the JAX package, through its native builder."""
-    from hashreadmapper_tpu import native
-    if native.cuckoo_build(np.zeros(0, np.uint32), 8, 0, 0) is None:
-        return None, "native cuckoo builder unavailable"
+    payload packing as the JAX package, through native/cuckoo.cpp
+    (which raises when the native library cannot be built)."""
     if v_cols >= (1 << 22):
         return None, (f"value array width {v_cols} exceeds the 22-bit "
                       "payload offset field")
@@ -142,6 +141,25 @@ def build_cuckoo_arrays(keys_np: np.ndarray, offs_np: np.ndarray,
         if ok:
             return (ck, payload, bits, (seed1, seed2)), None
     return None, "cuckoo insertion failed after 4 seed attempts"
+
+
+def build_dropped_keys(signatures: np.ndarray, valid: np.ndarray,
+                       max_values_per_key: int):
+    """Per-table sorted arrays of the read-signature keys carried by more
+    than max_values_per_key reads (hashreadmapper_tpu minhash_index.py
+    :238): a (read, table) probe whose own signature is such a key is
+    skipped, as the reference's read index never stored those reads.
+    Returns ([F, D] uint32 padded with SENTINEL, [F] int32 counts)."""
+    n, f = signatures.shape
+    dropped = []
+    for t in range(f):
+        ukeys, counts = np.unique(signatures[valid, t], return_counts=True)
+        dropped.append(ukeys[counts > max_values_per_key].astype(np.uint32))
+    d_max = max(1, max(len(d) for d in dropped))
+    out = np.full((f, d_max), SENTINEL, dtype=np.uint32)
+    for t in range(f):
+        out[t, :len(dropped[t])] = dropped[t]
+    return out, np.array([len(d) for d in dropped], dtype=np.int32)
 
 
 def build_csr_index_device(signatures: torch.Tensor, valid: torch.Tensor,

@@ -42,14 +42,22 @@ def minhash_signatures(bases: torch.Tensor, lengths: torch.Tensor, k: int,
 
 
 def signatures_3n_pair(bases: torch.Tensor, lengths: torch.Tensor, k: int,
-                       hash_ids: torch.Tensor
+                       hash_ids: torch.Tensor, mirror: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Directional 3N read signatures [N, 2F] = [sig_CT(x) | sig_GA(RC(x))]
-    from one pass over CT(x): GA(RC(x)) == RC(CT(x)), so the second space
-    is the reverse-complement k-mers of the CT collapse."""
-    s = sigs_from_bases(encode.three_n_c_to_t(bases), lengths, k, hash_ids,
-                        mode="both")
-    return _finish(s, lengths, k)
+    """Both 3N signature spaces of a read batch from one pass.
+
+    mirror=False (directional): [N, 2F] = [sig_CT(x) | sig_GA(RC(x))] from
+    CT(x), whose reverse-complement k-mers are the second space because
+    GA(RC(x)) == RC(CT(x)).  mirror=True (the PBAT strands of
+    --undirectional): [sig_CT(RC(x)) | sig_GA(x)] from GA(x), the halves
+    swapped because its reverse-complement k-mers are CT(RC(x))."""
+    collapse = encode.three_n_g_to_a if mirror else encode.three_n_c_to_t
+    s, valid = _finish(sigs_from_bases(collapse(bases), lengths, k, hash_ids,
+                                       mode="both"), lengths, k)
+    if mirror:
+        f = hash_ids.shape[0]
+        s = torch.cat([s[:, f:], s[:, :f]], dim=1)
+    return s, valid
 
 
 def minhash_signatures_chunked(bases: torch.Tensor, lengths: torch.Tensor,

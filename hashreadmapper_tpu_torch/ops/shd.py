@@ -85,13 +85,18 @@ def finalize_shd_from_best(best4, anchor_length, anchor_left, read_len,
 
 
 def pack_read_planes(read_bases: torch.Tensor, read_len: torch.Tensor,
-                     three_n: bool):
+                     three_n: bool, undirectional: bool = False):
     """Per-read planes (hi_o0, lo_o0, hi_o1, lo_o1, mask) [N, wr]:
     orientation 0 is the read (CT-collapsed in 3N mode), orientation 1 its
-    reverse complement (GA-collapsed in 3N mode)."""
+    reverse complement (GA-collapsed in 3N mode); parity mode packs both
+    un-collapsed.  undirectional=True mirrors the 3N collapses for the
+    PBAT strands: orientation 0 GA-collapsed, orientation 1 CT-collapsed."""
     wr = (read_bases.shape[1] + 31) // 32
     rc = encode.revcomp_bases(read_bases, read_len)
-    if three_n:
+    if three_n and undirectional:
+        o0 = encode.three_n_g_to_a(read_bases)
+        o1 = encode.three_n_c_to_t(rc)
+    elif three_n:
         o0 = encode.three_n_c_to_t(read_bases)
         o1 = encode.three_n_g_to_a(rc)
     else:
@@ -104,11 +109,14 @@ def pack_read_planes(read_bases: torch.Tensor, read_len: torch.Tensor,
 def shd_pairs_packed_planes(genome_hi, genome_lo, anchor_global_start,
                             anchor_length, anchor_left, r_hi_f, r_lo_f,
                             r_hi_r, r_lo_r, mask, read_len, pair_valid,
-                            params: ShdParams, three_n: bool = False
-                            ) -> ShdResult:
+                            params: ShdParams, three_n: bool = False,
+                            undirectional: bool = False) -> ShdResult:
     """SHD over pairs whose read planes are already packed and gathered:
     word-aligned anchor gathers from the packed genome, the sub-word start
-    folded into the shift bounds and taken back off the result."""
+    folded into the shift bounds and taken back off the result.  The
+    anchor planes are collapsed as pack_read_planes collapses the reads:
+    CT / GA per orientation in 3N mode, GA / CT with undirectional, none
+    in parity mode."""
     p, wr = r_hi_f.shape
     s_max = params.window_size + 32
     wa_pad = (s_max - 1) // 32 + wr + 2
@@ -118,7 +126,10 @@ def shd_pairs_packed_planes(genome_hi, genome_lo, anchor_global_start,
     widx = (word0[:, None] + torch.arange(wa_pad, device=gstart.device)
             ).clamp(0, genome_hi.shape[0] - 1)
     a_hi, a_lo = genome_hi[widx], genome_lo[widx]              # [P, wa_pad]
-    if three_n:
+    if three_n and undirectional:
+        f_hi, f_lo = collapse_planes_ga(a_hi, a_lo)
+        r2_hi, r2_lo = collapse_planes_ct(a_hi, a_lo)
+    elif three_n:
         f_hi, f_lo = collapse_planes_ct(a_hi, a_lo)
         r2_hi, r2_lo = collapse_planes_ga(a_hi, a_lo)
     else:

@@ -3,9 +3,10 @@ hashreadmapper_tpu/ops/shd_pallas.py).
 
 Bases become two bit planes (hi = bit 1, lo = bit 0 of the 2-bit code)
 packed 32 positions per int32 word, bit j of word w = position 32*w + j;
-a mismatch is a set bit of (a_hi ^ r_hi) | (a_lo ^ r_lo).  shd_best
-launches csrc/shd.cu for CUDA tensors and runs shd_best_plain for CPU
-tensors.
+a mismatch is a set bit of (a_hi ^ r_hi) | (a_lo ^ r_lo).  shd_best (the
+best shift per orientation) and shd_hamming_matrix (every shift's score)
+launch the kernels of csrc/shd.cu for CUDA tensors and run their *_plain
+versions for CPU tensors.
 """
 
 from __future__ import annotations
@@ -86,16 +87,43 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _check(anchor_hi, anchor_lo, read_hi, read_lo, mask, bounds, n_shifts,
-           wa, wr):
+           wa, wr, name="shd_best"):
     p = anchor_hi.shape[0]
     if (anchor_hi.shape != (p, 2, wa) or anchor_lo.shape != (p, 2, wa)
             or read_hi.shape != (p, 2, wr) or read_lo.shape != (p, 2, wr)
-            or mask.shape != (p, wr) or bounds.shape != (p, 2)):
-        raise ValueError("shd_best: expected anchors [P, 2, wa], reads "
+            or mask.shape != (p, wr)
+            or (bounds is not None and bounds.shape != (p, 2))):
+        raise ValueError(f"{name}: expected anchors [P, 2, wa], reads "
                          "[P, 2, wr], mask [P, wr], bounds [P, 2]")
-    if wa < (n_shifts + 31) // 32 + wr:
-        raise ValueError(f"shd_best: wa={wa} < ceil(n_shifts/32) + wr "
+    if n_shifts < 1 or wa < (n_shifts + 31) // 32 + wr:
+        raise ValueError(f"{name}: wa={wa} < ceil(n_shifts/32) + wr "
                          f"(shift windows would read past the anchor)")
+
+
+def _hamming_by_word(anchor_hi, anchor_lo, read_hi_both, read_lo_both,
+                     read_mask, n_shifts: int, wr: int) -> torch.Tensor:
+    """[P, 2, 32 * ceil(n_shifts / 32)] int64 Hamming matrix, built word
+    by word: the anchor planes shifted right by word*32 + bit across word
+    boundaries (the upper word contributes nothing when bit == 0)."""
+    dev = anchor_hi.device
+    u = lambda t: t.to(torch.int64) & MASK32
+    a_hi, a_lo = u(anchor_hi), u(anchor_lo)
+    r_hi, r_lo = u(read_hi_both)[:, :, None, :], u(read_lo_both)[:, :, None, :]
+    m = u(read_mask)[:, None, None, :]
+    bits = torch.arange(32, device=dev)[:, None]                 # [32, 1]
+    low_mask = (1 << bits) - 1
+
+    def shifted(a, word):
+        # [P, 2, 32, wr]: plane shifted right by word*32 + bit
+        w0 = a[:, :, None, word:word + wr]
+        w1 = a[:, :, None, word + 1:word + wr + 1]
+        return (w0 >> bits) | ((w1 & low_mask) << (32 - bits))
+
+    hams = []
+    for word in range((n_shifts + 31) // 32):
+        mm = ((shifted(a_hi, word) ^ r_hi) | (shifted(a_lo, word) ^ r_lo)) & m
+        hams.append(_popcount32(mm).sum(-1))                     # [P, 2, 32]
+    return torch.cat(hams, dim=2)
 
 
 def shd_best_plain(anchor_hi, anchor_lo, read_hi_both, read_lo_both,
@@ -106,25 +134,9 @@ def shd_best_plain(anchor_hi, anchor_lo, read_hi_both, read_lo_both,
     _check(anchor_hi, anchor_lo, read_hi_both, read_lo_both, read_mask,
            shift_bounds, n_shifts, wa, wr)
     dev = anchor_hi.device
-    u = lambda t: t.to(torch.int64) & MASK32
-    a_hi, a_lo = u(anchor_hi), u(anchor_lo)
-    r_hi, r_lo = u(read_hi_both)[:, :, None, :], u(read_lo_both)[:, :, None, :]
-    m = u(read_mask)[:, None, None, :]
-    bits = torch.arange(32, device=dev)[:, None]                 # [32, 1]
-    low_mask = (1 << bits) - 1
     n_words = (n_shifts + 31) // 32
-
-    def shifted(a, word):
-        # [P, 2, 32, wr]: plane shifted right by word*32 + bit
-        w0 = a[:, :, None, word:word + wr]
-        w1 = a[:, :, None, word + 1:word + wr + 1]
-        return (w0 >> bits) | ((w1 & low_mask) << (32 - bits))
-
-    hams = []
-    for word in range(n_words):
-        mm = ((shifted(a_hi, word) ^ r_hi) | (shifted(a_lo, word) ^ r_lo)) & m
-        hams.append(_popcount32(mm).sum(-1))                     # [P, 2, 32]
-    ham = torch.cat(hams, dim=2)
+    ham = _hamming_by_word(anchor_hi, anchor_lo, read_hi_both, read_lo_both,
+                           read_mask, n_shifts, wr)
     s = torch.arange(n_words * 32, device=dev)[None, None, :]
     lo_b = shift_bounds[:, 0].to(torch.int64)
     hi_b = shift_bounds[:, 1].to(torch.int64)
@@ -163,3 +175,46 @@ def shd_best(anchor_hi, anchor_lo, read_hi_both, read_lo_both, read_mask,
 
 
 shd_best.launches = 0
+
+
+def shd_hamming_matrix_plain(anchor_hi, anchor_lo, read_hi_both,
+                             read_lo_both, read_mask, n_shifts: int, wa: int,
+                             wr: int) -> torch.Tensor:
+    """Plain PyTorch version of shd_hamming_matrix."""
+    _check(anchor_hi, anchor_lo, read_hi_both, read_lo_both, read_mask, None,
+           n_shifts, wa, wr, "shd_hamming_matrix")
+    ham = _hamming_by_word(anchor_hi, anchor_lo, read_hi_both, read_lo_both,
+                           read_mask, n_shifts, wr)
+    return ham[:, :, :n_shifts].to(torch.int32).contiguous()
+
+
+def shd_hamming_matrix(anchor_hi, anchor_lo, read_hi_both, read_lo_both,
+                       read_mask, n_shifts: int, wa: int, wr: int
+                       ) -> torch.Tensor:
+    """The whole Hamming matrix [P, 2, n_shifts] int32: for pair p,
+    orientation o and shift s, sum_w popcount(((a_hi[p, o] >> s) ^
+    r_hi[p, o] | (a_lo[p, o] >> s) ^ r_lo[p, o]) & mask[p]), the anchor
+    shifted across word boundaries.  No bounds and no argmin.  Anchors
+    [P, 2, wa] with wa >= ceil(n_shifts / 32) + wr, reads [P, 2, wr], mask
+    [P, wr], int32 words (any P).  CUDA tensors launch csrc/shd.cu, CPU
+    tensors take the plain version."""
+    if anchor_hi.device.type == "cpu":
+        return shd_hamming_matrix_plain(anchor_hi, anchor_lo, read_hi_both,
+                                        read_lo_both, read_mask, n_shifts,
+                                        wa, wr)
+    _check(anchor_hi, anchor_lo, read_hi_both, read_lo_both, read_mask, None,
+           n_shifts, wa, wr, "shd_hamming_matrix")
+    args = [t.to(torch.int32).contiguous()
+            for t in (anchor_hi, anchor_lo, read_hi_both, read_lo_both,
+                      read_mask)]
+    p = args[0].shape[0]
+    out = torch.empty((p, 2, n_shifts), dtype=torch.int32,
+                      device=args[0].device)
+    _build.check_cuda("shd_hamming_matrix", *args, out)
+    _build.launch("hrm_shd_hamming_matrix", *[t.data_ptr() for t in args],
+                  out.data_ptr(), p, wa, wr, n_shifts, _build.stream(out))
+    shd_hamming_matrix.launches += 1
+    return out
+
+
+shd_hamming_matrix.launches = 0

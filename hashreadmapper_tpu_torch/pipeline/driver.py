@@ -1,13 +1,14 @@
 """End-to-end driver: STEP 1 coarse map -> STEP 2 SAM -> STEP 3 VCF
 (counterpart of hashreadmapper_tpu/pipeline/driver.py).
 
-STEP 1 runs on the port's CoarseMapper on the given device.  STEP 2
-runs there too (the port's mapping.run_cssw: score passes and banded
-traceback fused into the coarse step per chunk when the reads are
-pipelined, in staged chunks otherwise), with the native CIGAR finish,
-rescore and records of the JAX package on the host.  opts.step2_device =
-False (set in code; no flag) takes the shared serial host path instead.
-STEP 3 and the SAM writer are the shared native bulk emitters.
+STEP 1 runs on the CoarseMapper on the given device, in parity mode
+(canonical k-mers), --threeN or --threeN --undirectional.  STEP 2 runs
+there too (mapping.run_cssw: score passes and banded traceback fused into
+the coarse step per chunk when the reads are pipelined, in staged chunks
+otherwise), with the native CIGAR finish, rescore and records on the
+host.  opts.step2_device = False (set in code; no flag) takes the serial
+host path instead.  STEP 3 and the SAM writer are the native bulk
+emitters.
 """
 
 from __future__ import annotations
@@ -17,41 +18,15 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from hashreadmapper_tpu.config import MapperType, ProgramOptions, \
-    SequencePairType
-from hashreadmapper_tpu.io.genome import Genome
-from hashreadmapper_tpu.io.readstore import ReadStorage
-from hashreadmapper_tpu.pipeline import mapping as shared
-from hashreadmapper_tpu.pipeline.records import (MappingRecords, emit_sam,
-                                                 emit_vcf)
-from hashreadmapper_tpu.utils.progress import ProgressReporter
-
+from ..config import MapperType, ProgramOptions, SequencePairType
+from ..io.genome import Genome
+from ..io.readstore import ReadStorage
+from ..utils.progress import ProgressReporter
 from ..utils.timers import PhaseTimers
+from . import mapping, mapping_edlib
 from .engine import CoarseMapper, CoarseResults
 from .mapping import run_cssw
-
-
-class _StringCachedGenome(Genome):
-    """A Genome whose sequence_str decodes each chromosome once.
-
-    The shared host STEP 2 (mapping._window_views) asks for the whole
-    decoded chromosome of every read, which made it linear in the
-    chromosome length per read; the cached string is the same value, so
-    the output is unchanged."""
-
-    def sequence_str(self, chrom_id: int) -> str:
-        s = self._strings.get(chrom_id)
-        if s is None:
-            s = self._strings[chrom_id] = super().sequence_str(chrom_id)
-        return s
-
-
-def with_string_cache(genome: Genome) -> Genome:
-    """A view of `genome` (arrays shared) with sequence_str cached."""
-    cached = _StringCachedGenome.__new__(_StringCachedGenome)
-    cached.__dict__.update(genome.__dict__)
-    cached._strings = {}
-    return cached
+from .records import MappingRecords, emit_sam, emit_vcf
 
 
 def _pipelined_sw(mapper: CoarseMapper, bases: np.ndarray,
@@ -64,6 +39,9 @@ def _pipelined_sw(mapper: CoarseMapper, bases: np.ndarray,
     (results, MappingRecords, or AlignerArguments with global read ids)."""
     n = reads.num_reads
     chunk = opts.step2_pipeline_chunk
+    # the parity-mode key-drop rule is a whole-dataset property; it must
+    # precede the per-chunk mapping
+    mapper.ensure_read_drops(bases, reads.lengths)
     progress = ProgressReporter(n, label="reads mapped+aligned",
                                 enabled=opts.show_progress)
     res_parts, futs = [], []
@@ -135,8 +113,7 @@ def run_pipeline(opts: ProgramOptions, device,
 
         if genome is None:
             genome = Genome.from_fasta(opts.genomefile)
-        genome_rc = with_string_cache(genome.reverse_complement())
-        genome = with_string_cache(genome)
+        genome_rc = genome.reverse_complement()
 
         with timers.phase("build_minhasher"):
             if opts.max_read_length < reads.sequence_length_upper_bound():
@@ -180,9 +157,8 @@ def run_pipeline(opts: ProgramOptions, device,
                 sam_stats = emit_sam(mappingout, genome, sam_path,
                                      threads=max(1, opts.threads))
             else:
-                sam_stats = shared.print_to_sam(mappingout, genome, sam_path)
+                sam_stats = mapping.print_to_sam(mappingout, genome, sam_path)
         else:
-            from hashreadmapper_tpu.pipeline import mapping_edlib
             mappingout = mapping_edlib.run_edlib(
                 genome, genome_rc, results.orientation, results.position,
                 results.chromosome_id, reads, opts)
@@ -197,7 +173,7 @@ def run_pipeline(opts: ProgramOptions, device,
         elif isinstance(mappingout, MappingRecords):
             vcf_path = emit_vcf(mappingout, genome, opts.outputfile)
         else:
-            vcf_path = shared.do_vc(mappingout, genome, opts.outputfile)
+            vcf_path = mapping.do_vc(mappingout, genome, opts.outputfile)
 
     timers.print_all()
     return {"results": results, "mappingout": mappingout,

@@ -1,14 +1,17 @@
 """Coarse-mapping engine: genome window index on the device, reads stream
 through (counterpart of hashreadmapper_tpu/pipeline/engine.py).
 
-Per read batch: 3N signatures -> capped CSR probe -> min-table-hits vote
+Per read batch: signatures -> capped CSR probe -> min-table-hits vote
 -> SHD against the extended candidate windows -> per-read best (min
 Hamming, then earliest window); with scores, also the fused STEP 2: the
 3N pairs of every read against its window, the striped-SW score passes
-and the banded traceback (fused_step2_scores).  This port covers the
-directional 3N configuration on one device; every tensor lives on the
-mapper's `device` (a CUDA device runs the hand-written kernels, the CPU
-their plain versions, with identical results).
+and the banded traceback (fused_step2_scores).  Three seeding modes:
+parity (canonical k-mers, F tables, un-collapsed SHD), --threeN (CT and
+GA spaces, 2F tables) and --threeN --undirectional (the 2F tables probed
+a second time with the mirrored PBAT query spaces, and a second,
+mirrored SHD evaluation).  One device; every tensor lives on the mapper's
+`device` (a CUDA device runs the hand-written kernels, the CPU their
+plain versions, with identical results).
 """
 
 from __future__ import annotations
@@ -19,14 +22,13 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from hashreadmapper_tpu.align import sw
-from hashreadmapper_tpu.config import ProgramOptions
-from hashreadmapper_tpu.io.genome import Genome
-from hashreadmapper_tpu.utils.progress import ProgressReporter
-
+from ..align import sw
+from ..config import ProgramOptions
 from ..index import minhash_index as mi
+from ..io.genome import Genome
 from ..ops import bandtb, encode, minhash, shd, swdev
 from ..ops.shd_kernel import pack_genome_planes
+from ..utils.progress import ProgressReporter
 
 SENTINEL = 0xFFFFFFFF
 _BIG = 0x3FFFFFFF
@@ -46,10 +48,6 @@ def check_supported(opts: ProgramOptions) -> None:
         raise unsupported("--mesh", "Queue 1 item 15")
     if opts.num_regions > 1:
         raise unsupported("--regions", "Queue 1 item 14")
-    if not opts.three_n_seeding:
-        raise unsupported("parity mode (no --threeN)", "Queue 1 item 11")
-    if opts.undirectional:
-        raise unsupported("--undirectional", "Queue 1 item 11")
 
 
 @dataclasses.dataclass
@@ -132,8 +130,13 @@ def coarse_pairs_best(ids, read_bases, read_len, opts: ProgramOptions,
 
     With 0 < opts.shd_pairs_per_read_budget < K the valid (read,
     candidate) pairs are compacted to B * budget before SHD; pairs beyond
-    it score as rejected and are counted in pair_drops.  Returns (out_ori,
-    out_ham, out_shift, out_chrom, out_pos, best_gwin, has, pair_drops).
+    it score as rejected and are counted in pair_drops.  Under
+    opts.undirectional every pair is also evaluated in the mirrored (PBAT)
+    collapse spaces, and the mirrored result wins only when it is not NONE
+    and the directional one is NONE or has strictly larger Hamming.
+    Returns (out_ori, out_ham, out_shift, out_chrom, out_pos, best_gwin,
+    has, out_strand, pair_drops); out_strand is 1 where the mirrored space
+    won.
     """
     b, kcap = ids.shape
     dev = ids.device
@@ -171,13 +174,27 @@ def coarse_pairs_best(ids, read_bases, read_len, opts: ProgramOptions,
         max_ext_len=opts.window_size + opts.max_read_length,
         max_read_len=read_bases.shape[1],
         max_hamming_percent=opts.max_hamming_percent)
-    hi0, lo0, hi1, lo1, pmask = shd.pack_read_planes(
-        read_bases, read_len, opts.three_n_seeding)
-    res = shd.shd_pairs_packed_planes(
-        genome_hi, genome_lo, chrom_offset[chrom] + loc.start, loc.length,
-        loc.left, hi0[ridx], lo0[ridx], hi1[ridx], lo1[ridx], pmask[ridx],
-        rl_rep, sel_valid, params, three_n=opts.three_n_seeding)
+
+    def eval_pairs(undirectional):
+        hi0, lo0, hi1, lo1, pmask = shd.pack_read_planes(
+            read_bases, read_len, opts.three_n_seeding, undirectional)
+        return shd.shd_pairs_packed_planes(
+            genome_hi, genome_lo, chrom_offset[chrom] + loc.start,
+            loc.length, loc.left, hi0[ridx], lo0[ridx], hi1[ridx],
+            lo1[ridx], pmask[ridx], rl_rep, sel_valid, params,
+            three_n=opts.three_n_seeding, undirectional=undirectional)
+
+    res = eval_pairs(False)
     res_ham, res_shf, res_ori = res.hamming, res.shift, res.orientation
+    res_strand = torch.zeros_like(res_ham)
+    if opts.undirectional:
+        res_u = eval_pairs(True)
+        better_u = (res_u.orientation != shd.NONE) & (
+            (res_ori == shd.NONE) | (res_u.hamming < res_ham))
+        res_ham = torch.where(better_u, res_u.hamming, res_ham)
+        res_shf = torch.where(better_u, res_u.shift, res_shf)
+        res_ori = torch.where(better_u, res_u.orientation, res_ori)
+        res_strand = better_u.to(res_strand.dtype)
 
     if compact:
         tgt = torch.where(sel_valid, pair_sel, torch.full_like(pair_sel, nk))
@@ -188,6 +205,7 @@ def coarse_pairs_best(ids, read_bases, read_len, opts: ProgramOptions,
             return buf[:nk]
         res_ham, res_shf = spread(res_ham, 0), spread(res_shf, 0)
         res_ori = spread(res_ori, shd.NONE)
+        res_strand = spread(res_strand, 0)
 
     ham = res_ham.reshape(b, kcap)
     shf = res_shf.reshape(b, kcap)
@@ -211,10 +229,12 @@ def coarse_pairs_best(ids, read_bases, read_len, opts: ProgramOptions,
                           torch.full_like(zero, shd.NONE))
     out_ham = torch.where(has, take(ham).to(torch.int64), zero)
     out_shift = torch.where(has, take(shf).to(torch.int64), zero)
+    out_strand = torch.where(
+        has, take(res_strand.reshape(b, kcap)).to(torch.int64), zero)
     out_chrom = torch.where(has, win_chrom[best_gwin], zero)
     out_pos = torch.where(has, win_pos[best_gwin], zero)
     return (out_ori, out_ham, out_shift, out_chrom, out_pos, best_gwin, has,
-            pair_drops)
+            out_strand, pair_drops)
 
 
 def build_genome_s2(genome: Genome) -> np.ndarray:
@@ -233,6 +253,8 @@ def fused_step2_scores(opts: ProgramOptions, chrom_offset, chrom_len,
     pairs [2i] = 3N query and [2i+1] = 3N reverse-complement query of read
     i, both against read i's 3N window, for every row of the batch
     (unmapped and padding rows score against chromosome 0, position 0).
+    The collapse is C->T, or G->A for a read whose packed strand is 1 in
+    FORWARD orientation (a PBAT read under opts.undirectional).
     Returns (scores [10, 2B] int16, tb_ops [2B, 48] uint8, tb_status
     [2B] int8); without opts.step2_device_traceback the traceback is
     skipped and tb_ops is [2B, 1] zeros."""
@@ -241,6 +263,7 @@ def fused_step2_scores(opts: ProgramOptions, chrom_offset, chrom_len,
     dev = read_bases.device
     packed = packed.to(torch.int64)
     ori, chrom, pos = packed[:, 0], packed[:, 3], packed[:, 4]
+    ga_t = ((packed[:, 6] != 0) & (ori == 1))[None, :]
     rc = encode.revcomp_bases(read_bases, read_len)
     is_rc = (ori == 2)[:, None]
     # pairs built transposed ([L, pairs]), the layout the passes take
@@ -252,9 +275,15 @@ def fused_step2_scores(opts: ProgramOptions, chrom_offset, chrom_len,
     gidx = (chrom_offset[chrom] + pos)[None, :] + iw
     win_t = genome_s2[gidx.clamp(max=genome_s2.shape[0] - 1)]
     win_t = torch.where(iw < wl, win_t, 4)
-    ct = encode.three_n_c_to_t
-    pair_q_t = torch.stack([ct(fwd_t), ct(rcq_t)], dim=2).reshape(lq, 2 * b)
-    pair_ref_t = ct(win_t).repeat_interleave(2, dim=1)
+
+    def collapse(m):
+        ct = encode.three_n_c_to_t(m)
+        if not opts.undirectional:
+            return ct
+        return torch.where(ga_t, encode.three_n_g_to_a(m), ct)
+    pair_q_t = torch.stack([collapse(fwd_t), collapse(rcq_t)],
+                           dim=2).reshape(lq, 2 * b)
+    pair_ref_t = collapse(win_t).repeat_interleave(2, dim=1)
     rl32 = read_len.to(torch.int32)
     scores = swdev.ssw_score_packed_t(
         pair_q_t.to(torch.int32), rl32.repeat_interleave(2),
@@ -271,7 +300,7 @@ def fused_step2_scores(opts: ProgramOptions, chrom_offset, chrom_len,
 
 class CoarseMapper:
     """The window index of one genome on one device, and the coarse
-    mapping of read batches against it (directional 3N)."""
+    mapping of read batches against it."""
 
     supports_fused_scores = True
 
@@ -302,12 +331,9 @@ class CoarseMapper:
         if opts.probe_cap < 1023:
             self.index.build_cuckoo()
         self._genome_s2 = None
-        f2 = 2 * len(self.hash_ids)
-        # 3N: no read-side key dropping; an empty dropped-keys mask
-        self.dropped = (
-            torch.full((f2, 1), SENTINEL, dtype=torch.int64,
-                       device=self.device),
-            torch.zeros((f2,), dtype=torch.int64, device=self.device))
+        # dropped-keys mask of the read set (parity mode); None until
+        # ensure_read_drops or map_reads sets it
+        self.dropped = None
 
     # -- index construction ------------------------------------------------
     def _window_geometry(self):
@@ -335,8 +361,8 @@ class CoarseMapper:
                    win_len[s0:s1])
 
     def _build_window_index(self, sig_batch: int) -> mi.CsrIndex:
-        """Window signatures in both 3N spaces ([W, 2F] = [CT | GA]), then
-        the CSR build, all on the device."""
+        """Window signatures (3N: both spaces, [W, 2F] = [CT | GA]; parity:
+        canonical k-mers, [W, F]), then the CSR build, all on the device."""
         opts = self.opts
         progress = ProgressReporter(self.table.num_windows,
                                     label="hash windows",
@@ -347,13 +373,19 @@ class CoarseMapper:
                 self.table.genome_concat,
                 torch.from_numpy(gstart).to(self.device), opts.window_size)
             ldev = torch.from_numpy(lens).to(self.device)
-            s_ct, v = minhash.minhash_signatures_chunked(
-                encode.three_n_c_to_t(bdev), ldev, opts.kmer_length,
-                self._hash_ids_dev, sig_batch, canonical=False)
-            s_ga, _ = minhash.minhash_signatures_chunked(
-                encode.three_n_g_to_a(bdev), ldev, opts.kmer_length,
-                self._hash_ids_dev, sig_batch, canonical=False)
-            sig_parts.append(torch.cat([s_ct, s_ga], dim=1))
+            if opts.three_n_seeding:
+                s_ct, v = minhash.minhash_signatures_chunked(
+                    encode.three_n_c_to_t(bdev), ldev, opts.kmer_length,
+                    self._hash_ids_dev, sig_batch, canonical=False)
+                s_ga, _ = minhash.minhash_signatures_chunked(
+                    encode.three_n_g_to_a(bdev), ldev, opts.kmer_length,
+                    self._hash_ids_dev, sig_batch, canonical=False)
+                sigs = torch.cat([s_ct, s_ga], dim=1)
+            else:
+                sigs, v = minhash.minhash_signatures_chunked(
+                    bdev, ldev, opts.kmer_length, self._hash_ids_dev,
+                    sig_batch)
+            sig_parts.append(sigs)
             valid_parts.append(v)
             progress.add(len(lens))
         if opts.show_progress:
@@ -365,6 +397,45 @@ class CoarseMapper:
     def save_index(self, path: str) -> None:
         self.index.save(path)
 
+    # -- read-side key dropping (parity mode) ------------------------------
+    def ensure_read_drops(self, read_bases: np.ndarray,
+                          read_lengths: np.ndarray) -> None:
+        """The dropped-keys mask from the FULL read set: keys carried by
+        more than max_results_per_map reads are invisible to every probe
+        of that table (the reference's read-index drop rule).  A chunked
+        caller runs this over all reads before its per-chunk map_reads.
+        No-op in 3N mode or when already computed."""
+        opts = self.opts
+        if opts.three_n_seeding or self.dropped is not None:
+            return
+        sigs, valid = [], []
+        for s0 in range(0, read_bases.shape[0], opts.batchsize):
+            sl = slice(s0, s0 + opts.batchsize)
+            sg, v = minhash.minhash_signatures(
+                torch.from_numpy(np.ascontiguousarray(
+                    read_bases[sl])).to(self.device),
+                torch.from_numpy(np.ascontiguousarray(
+                    read_lengths[sl]).astype(np.int32)).to(self.device),
+                opts.kmer_length, self._hash_ids_dev)
+            sigs.append(sg.cpu().numpy().astype(np.uint32))
+            valid.append(v.cpu().numpy())
+        if not sigs:
+            return
+        dk, dn = mi.build_dropped_keys(np.concatenate(sigs),
+                                       np.concatenate(valid),
+                                       opts.max_results_per_map)
+        self.dropped = (
+            torch.from_numpy(dk.astype(np.int64)).to(self.device),
+            torch.from_numpy(dn.astype(np.int64)).to(self.device))
+
+    def ensure_empty_drops(self) -> None:
+        if self.dropped is None:
+            f = self.index.num_tables
+            self.dropped = (
+                torch.full((f, 1), SENTINEL, dtype=torch.int64,
+                           device=self.device),
+                torch.zeros((f,), dtype=torch.int64, device=self.device))
+
     # -- the per-batch step --------------------------------------------------
     def _map_batch(self, read_bases: torch.Tensor, read_len: torch.Tensor,
                    read_valid: torch.Tensor):
@@ -375,30 +446,52 @@ class CoarseMapper:
         b = read_bases.shape[0]
         kcap = opts.candidates_per_read_cap
         idx, t = self.index, self.table
-        sigs, sig_valid = minhash.signatures_3n_pair(
-            read_bases, read_len, opts.kmer_length, self._hash_ids_dev)
+        if opts.three_n_seeding:
+            sigs, sig_valid = minhash.signatures_3n_pair(
+                read_bases, read_len, opts.kmer_length, self._hash_ids_dev)
+        else:
+            sigs, sig_valid = minhash.minhash_signatures(
+                read_bases, read_len, opts.kmer_length, self._hash_ids_dev)
         sig_valid = sig_valid & read_valid
+        self.ensure_empty_drops()
         cuckoo_kw = {}
         if idx.cuckoo_keys is not None:
             cuckoo_kw = dict(cuckoo=(idx.cuckoo_keys, idx.cuckoo_payload),
                              cuckoo_bits=idx.cuckoo_bits,
                              cuckoo_seeds=idx.cuckoo_seeds)
-        cand, counts, tail_drops, head_drops = mi.probe_tables(
-            idx.keys, idx.offsets, idx.values, idx.num_keys, sigs, sig_valid,
-            opts.probe_cap, dropped_keys=self.dropped,
-            bucket_start=idx.bucket_start, probe_steps=idx.probe_steps,
-            tail_budget=b * opts.probe_tail_budget_per_read,
-            head_budget=b * opts.probe_head_budget_per_read, **cuckoo_kw)
+
+        def probe(sig_block):
+            return mi.probe_tables(
+                idx.keys, idx.offsets, idx.values, idx.num_keys, sig_block,
+                sig_valid, opts.probe_cap, dropped_keys=self.dropped,
+                bucket_start=idx.bucket_start, probe_steps=idx.probe_steps,
+                tail_budget=b * opts.probe_tail_budget_per_read,
+                head_budget=b * opts.probe_head_budget_per_read,
+                **cuckoo_kw)
+
+        cand, counts, tail_drops, head_drops = probe(sigs)
+        if opts.undirectional:
+            # PBAT strands: the same 2F tables probed with the mirrored
+            # query spaces, CT(RC read) against the CT tables and GA(read)
+            # against the GA tables; the vote merges all 4F lists
+            sigs_u, _ = minhash.signatures_3n_pair(
+                read_bases, read_len, opts.kmer_length, self._hash_ids_dev,
+                mirror=True)
+            cand_u, counts_u, tail_u, head_u = probe(sigs_u)
+            cand = torch.cat([cand, cand_u], dim=0)            # [4F, N, C]
+            counts = torch.cat([counts, counts_u], dim=0)
+            tail_drops = tail_drops + tail_u
+            head_drops = head_drops + head_u
         ids, _, num_kept = mi.vote_candidates_fnc_auto(
             cand, opts.min_table_hits, kcap)
         (out_ori, out_ham, out_shift, out_chrom, out_pos, best_gwin, has,
-         pair_drops) = coarse_pairs_best(
+         out_strand, pair_drops) = coarse_pairs_best(
             ids, read_bases, read_len, opts, t.genome_hi, t.genome_lo,
             t.win_pos, t.win_chrom, t.chrom_offset, t.chrom_len)
         out_gwin = torch.where(has, best_gwin, torch.full_like(best_gwin, -1))
         packed = torch.stack(
             [out_ori, out_ham, out_shift, out_chrom, out_pos, out_gwin,
-             torch.zeros_like(out_ori)], dim=1).to(torch.int32)
+             out_strand], dim=1).to(torch.int32)
         overflow = torch.stack([(counts > opts.probe_cap).sum(),
                                 (num_kept > kcap).sum(), pair_drops,
                                 tail_drops, head_drops])
@@ -465,6 +558,9 @@ class CoarseMapper:
         if lr > opts.max_read_length:
             raise ValueError(f"reads longer than max_read_length "
                              f"({lr} > {opts.max_read_length})")
+        # parity mode: the read-side key drops of this read set, unless a
+        # chunked caller has set them from the whole set already
+        self.ensure_read_drops(read_bases, read_lengths)
         bsz = opts.batchsize
         packed_parts, overflow = [], torch.zeros(5, dtype=torch.int64,
                                                  device=self.device)

@@ -92,6 +92,146 @@ def test_shd_best_kernel_equals_plain(dev, wr, n_shifts):
     assert torch.equal(got, sk.shd_best_plain(*args))
 
 
+@pytest.mark.parametrize("k,n,npos", [(5, 300, 36), (11, 77, 30),
+                                      (16, 129, 113), (16, 1, 1)])
+def test_sig_min_murmur_kernel_equals_plain(dev, k, n, npos):
+    """Full-range k-mer words (the hash-id add carries), rows with no
+    valid position, lengths past the clamp, N not a multiple of 128."""
+    rng = np.random.default_rng(k + n)
+    kmers = rng.integers(0, 2**32, size=(n, npos), dtype=np.int64)
+    kmers[0] = 2**32 - 1
+    lens = rng.integers(0, npos + k + 9, size=n).astype(np.int32)
+    lens[:3] = [0, k - 1, npos + k + 8][:min(3, n)]
+    kmers, lens = torch.from_numpy(kmers).to(dev), torch.from_numpy(lens).to(dev)
+    hid = torch.tensor([0, 1, 9, 2**32 - 1], dtype=torch.int64, device=dev)
+    got = _launched_once(mk.sig_min_murmur,
+                         lambda: mk.sig_min_murmur(kmers, lens, k, hid))
+    assert torch.equal(got, mk.sig_min_murmur_plain(kmers, lens, k, hid))
+
+
+def test_sig_min_murmur_kernel_equals_sigs_from_bases_fwd(dev):
+    rng = np.random.default_rng(3)
+    k, n, maxlen = 16, 300, 60
+    bases = rng.integers(0, 4, size=(n, maxlen), dtype=np.int8)
+    lens = rng.integers(0, maxlen + 5, size=n).astype(np.int32)
+    npos = maxlen - k + 1
+    lo = np.zeros((n, npos), np.int64)
+    for i in range(k):
+        lo |= bases[:, i:i + npos].astype(np.int64) << (2 * (k - 1 - i))
+    hid = torch.arange(16, dtype=torch.int64, device=dev)
+    tl = torch.from_numpy(lens).to(dev)
+    got = mk.sig_min_murmur(torch.from_numpy(lo).to(dev), tl, k, hid)
+    want = mk.sigs_from_bases(torch.from_numpy(bases).to(dev), tl, k, hid,
+                              "fwd")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("wr,n_shifts,p", [(1, 32, 300), (2, 64, 129),
+                                           (4, 160, 300), (3, 50, 1),
+                                           (16, 96, 40)])
+def test_shd_hamming_matrix_kernel_equals_plain(dev, wr, n_shifts, p):
+    rng = np.random.default_rng(wr + p)
+    wa = (n_shifts + 31) // 32 + wr
+    r32 = lambda *s: torch.from_numpy(rng.integers(
+        -2**31, 2**31, size=s, dtype=np.int64).astype(np.int32)).to(dev)
+    a_hi, a_lo = r32(p, 2, wa), r32(p, 2, wa)
+    a_hi[:1] = -1
+    args = (a_hi, a_lo, r32(p, 2, wr), r32(p, 2, wr), r32(p, wr), n_shifts,
+            wa, wr)
+    got = _launched_once(sk.shd_hamming_matrix,
+                         lambda: sk.shd_hamming_matrix(*args))
+    assert got.is_contiguous() and got.shape == (p, 2, n_shifts)
+    assert torch.equal(got, sk.shd_hamming_matrix_plain(*args))
+
+
+def test_hamming_matrix_kernel_row_min_equals_shd_best_kernel(dev):
+    rng = np.random.default_rng(8)
+    p, wr, n_shifts = 500, 4, 160
+    wa = n_shifts // 32 + wr + 1
+    r32 = lambda *s: torch.from_numpy(rng.integers(
+        -2**31, 2**31, size=s, dtype=np.int64).astype(np.int32)).to(dev)
+    a_hi, a_lo = r32(p, 2, wa), r32(p, 2, wa)
+    a_hi[5:10] = a_hi[5:10, :, :1]                           # tied shifts
+    lo = rng.integers(0, 40, size=p)
+    bounds = np.stack([lo, np.minimum(lo + rng.integers(-3, 130, size=p),
+                                      n_shifts - 1)], axis=1)
+    bounds = torch.from_numpy(bounds.astype(np.int32)).to(dev)
+    planes = (a_hi, a_lo, r32(p, 2, wr), r32(p, 2, wr), r32(p, wr))
+    ham = sk.shd_hamming_matrix(*planes, n_shifts, wa, wr).to(torch.int64)
+    s = torch.arange(n_shifts, device=dev)[None, None, :]
+    inside = (s >= bounds[:, 0, None, None]) & (s <= bounds[:, 1, None, None])
+    ham = torch.where(inside, ham, torch.full_like(ham, sk.BIG))
+    best, idx = ham.min(dim=2)
+    first = (ham == best[:, :, None]).to(torch.int64).argmax(dim=2)
+    shift = torch.where(best < sk.BIG, first,
+                        bounds[:, :1].to(torch.int64))
+    want = sk.shd_best(*planes, bounds, n_shifts, wa, wr)
+    got = torch.stack([best[:, 0], shift[:, 0], best[:, 1], shift[:, 1]],
+                      dim=1).to(torch.int32)
+    assert torch.equal(got, want)
+
+
+def _four_strand_case(seed=5, g_len=60_000, n_per=64, read_len=80,
+                      conv=0.9):
+    """tests/test_undirectional.py's four-strand reads (its own copy: this
+    file must import without jax, so not from torch_helpers)."""
+    from hashreadmapper_tpu_torch.io.genome import Genome
+    rng = np.random.default_rng(seed)
+    chrom = rng.integers(0, 4, size=g_len, dtype=np.int8)
+    genome = Genome(["chrU"], [np.frombuffer(b"ACGT", np.uint8)[chrom]
+                               .tobytes().decode()])
+    starts = rng.integers(0, g_len - read_len, size=4 * n_per)
+    reads = chrom[starts[:, None] + np.arange(read_len)[None, :]].copy()
+    kind = np.repeat(np.arange(4), n_per)
+    rc = (kind == 1) | (kind == 3)
+    reads[rc] = 3 - reads[rc][:, ::-1]
+    ct = (kind < 2)[:, None]
+    c_conv = (reads == 1) & (rng.random(reads.shape) < conv) & ct
+    g_conv = (reads == 2) & (rng.random(reads.shape) < conv) & ~ct
+    reads[c_conv] = 3
+    reads[g_conv] = 0
+    return genome, reads.astype(np.int8), np.full(4 * n_per, read_len,
+                                                  np.int32), kind
+
+
+@pytest.mark.parametrize("mode", ["parity", "undirectional"])
+def test_coarse_and_fused_step2_card_equals_cpu_in_the_new_modes(dev, mode):
+    """Parity (canonical signatures, F tables, un-collapsed planes) and
+    --undirectional (mirrored signatures, 4F vote, mirrored planes, G->A
+    STEP-2 pairs): packed rows, overflow and the fused bundle, card == CPU."""
+    from hashreadmapper_tpu_torch.config import ProgramOptions
+    from hashreadmapper_tpu_torch.pipeline.engine import CoarseMapper
+    genome, reads, lengths, kind = _four_strand_case(
+        conv=0.0 if mode == "parity" else 0.9)
+    if mode == "parity":
+        rng = np.random.default_rng(6)
+        reads[kind == 3] = reads[kind == 3][:, ::-1].copy()   # junk
+        sub = rng.random(reads.shape) < 0.02
+        reads[sub] = rng.integers(0, 4, size=int(sub.sum()))
+    outs = []
+    for d in (dev, "cpu"):
+        opts = ProgramOptions(
+            kmer_length=16, num_hash_functions=8, window_size=128,
+            min_table_hits=2, batchsize=128, max_hamming_percent=0.6,
+            probe_cap=16, candidates_per_read_cap=16, max_read_length=96,
+            three_n_seeding=mode != "parity",
+            undirectional=mode == "undirectional",
+            shd_pairs_per_read_budget=4, probe_tail_budget_per_read=4)
+        res, bundle = CoarseMapper(genome, opts, d).map_reads(
+            reads, lengths, with_scores=True)
+        outs.append((res, bundle))
+    (rc_, bc), (rh, bh) = outs
+    for f in ("orientation", "hamming", "shift", "chromosome_id", "position",
+              "global_window_id", "bs_strand"):
+        np.testing.assert_array_equal(getattr(rc_, f), getattr(rh, f), f)
+    assert rc_.stats == rh.stats
+    for c, h in zip(bc, bh):
+        np.testing.assert_array_equal(c, h)
+    assert (rh.orientation != 3).mean() > 0.4
+    if mode == "undirectional":
+        assert (rh.bs_strand[kind >= 2] == 1).mean() > 0.5
+
+
 def _pairs(rng, p, lq, lr):
     """Reads cut from their ref with substitutions and a 0-3 base indel,
     every third pair random; every seventh a full-length exact copy, which
@@ -217,6 +357,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
                                        device=dev),
                            torch.zeros(2, dtype=torch.int32), 16,
                            torch.zeros(1, dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError, match="read past the anchor"):
+        sk.shd_hamming_matrix(x[:, :, :3], x[:, :, :3], x[:, :, :2],
+                              x[:, :, :2], x[:, 0, :2], 64, 3, 2)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        mk.sig_min_murmur(torch.zeros((2, 5), dtype=torch.int64, device=dev),
+                          torch.zeros(2, dtype=torch.int32), 16,
+                          torch.zeros(1, dtype=torch.int64, device=dev))
     z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="S=9"):
         swk.pass_batched(z(9, 16, 4), z(4), z(4), z(8, 4), z(4), z(4), 0, 8,

@@ -6,9 +6,10 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from hashreadmapper_tpu import native
 from hashreadmapper_tpu.index import minhash_index as jmi
 from hashreadmapper_tpu_torch.index import minhash_index as mi
+
+from torch_helpers import ensure_reference_native
 
 SENT = np.uint32(0xFFFFFFFF)
 F, N_ITEMS = 6, 3000
@@ -41,7 +42,7 @@ def indexes():
     tidx = mi.build_csr_index_device(_t(sigs), torch.from_numpy(valid), 16,
                                      np.arange(F))
     tidx.build_buckets()
-    assert native.available(), "native library (cuckoo builder) missing"
+    ensure_reference_native()        # the JAX side's cuckoo table build
     assert jidx.build_cuckoo() and tidx.build_cuckoo()
     return sigs, valid, jidx, tidx
 

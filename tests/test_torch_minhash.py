@@ -12,7 +12,8 @@ from hashreadmapper_tpu.ops import minhash_pallas
 from hashreadmapper_tpu.ops import u64 as ju64
 from hashreadmapper_tpu_torch.ops import encode, minhash, u64
 from hashreadmapper_tpu_torch.ops.minhash_kernel import (
-    sigs_from_bases, sigs_from_bases_plain)
+    sig_min_murmur, sig_min_murmur_plain, sigs_from_bases,
+    sigs_from_bases_plain)
 
 
 def _reads(seed, n=128, maxlen=40, k=16):
@@ -84,21 +85,33 @@ def test_minhash_signatures_matches_jax(k, canonical):
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
 
 
+@pytest.mark.parametrize("mirror", [False, True], ids=["dir", "mirror"])
 @pytest.mark.parametrize("k", [8, 12, 16])
-def test_signatures_3n_pair_matches_jax(k):
+def test_signatures_3n_pair_matches_jax(k, mirror):
     bases, lengths = _reads(200 + k, n=64, k=k)
     # the JAX package's CPU path reverse-complements over the raw length;
     # only its TPU path clamps it to the padded width, so stay inside it
     lengths = np.minimum(lengths, bases.shape[1])
     hash_ids = np.arange(6, dtype=np.uint32)
     want_s, want_v = jminhash.signatures_3n_pair(
-        jnp.asarray(bases), jnp.asarray(lengths), k, jnp.asarray(hash_ids))
+        jnp.asarray(bases), jnp.asarray(lengths), k, jnp.asarray(hash_ids),
+        mirror=mirror)
     got_s, got_v = minhash.signatures_3n_pair(
         torch.from_numpy(bases), torch.from_numpy(lengths), k,
-        torch.from_numpy(hash_ids.astype(np.int64)))
+        torch.from_numpy(hash_ids.astype(np.int64)), mirror=mirror)
     np.testing.assert_array_equal(got_s.numpy(),
                                   np.asarray(want_s).astype(np.int64))
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    if mirror:
+        # the mirrored layout by its definition: [CT(RC(x)) | GA(x)]
+        tb, tl = torch.from_numpy(bases), torch.from_numpy(lengths)
+        hid = torch.from_numpy(hash_ids.astype(np.int64))
+        first, _ = minhash.minhash_signatures(
+            encode.three_n_c_to_t(encode.revcomp_bases(tb, tl)), tl, k, hid,
+            canonical=False)
+        second, _ = minhash.minhash_signatures(
+            encode.three_n_g_to_a(tb), tl, k, hid, canonical=False)
+        assert torch.equal(got_s, torch.cat([first, second], dim=1))
 
 
 def test_chunked_matches_jax_and_cpu_wrapper_launches_nothing():
@@ -114,3 +127,70 @@ def test_chunked_matches_jax_and_cpu_wrapper_launches_nothing():
     np.testing.assert_array_equal(got_s.numpy(),
                                   np.asarray(want_s).astype(np.int64))
     assert sigs_from_bases.launches == before
+
+
+def _kmer_lows(bases, k):
+    """[N, L - k + 1] uint32 forward k-mers of padded base rows."""
+    n, maxlen = bases.shape
+    npos = maxlen - k + 1
+    lo = np.zeros((n, npos), np.uint64)
+    for i in range(k):
+        lo |= bases[:, i:i + npos].astype(np.uint64) << np.uint64(
+            2 * (k - 1 - i))
+    return lo.astype(np.uint32)
+
+
+@pytest.mark.parametrize("k", [5, 11, 16])
+def test_sig_min_murmur_matches_pallas_interpret(k):
+    """N = 128 for the Pallas kernel; rows with no valid position, a
+    length past the clamp, and random full-range k-mer words (the add of
+    the hash id carries into the high word)."""
+    bases, lengths = _reads(300 + k, n=128, maxlen=40, k=k)
+    kmers = _kmer_lows(bases, k)
+    rng = np.random.default_rng(k)
+    kmers[8:16] = rng.integers(2**32 - 70, 2**32, size=kmers[8:16].shape,
+                               dtype=np.uint64).astype(np.uint32)
+    hash_ids = np.array([0, 1, 7, 31, 63], dtype=np.uint32)
+    want = np.asarray(minhash_pallas.sig_min_murmur(
+        jnp.asarray(kmers), jnp.asarray(lengths), k, jnp.asarray(hash_ids),
+        interpret=True)).astype(np.int64)
+    tk = torch.from_numpy(kmers.astype(np.int64))
+    tl = torch.from_numpy(lengths)
+    hid = torch.from_numpy(hash_ids.astype(np.int64))
+    before = sig_min_murmur.launches
+    got = sig_min_murmur(tk, tl, k, hid)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        sig_min_murmur_plain(tk, tl, k, hid).numpy(), want)
+    assert sig_min_murmur.launches == before      # CPU: no launch
+    assert (want[lengths < k] == 0xFFFFFFFF).all() and (lengths < k).any()
+    # the port takes any N, and the k-mers as int32 bits too
+    odd = sig_min_murmur_plain(tk[:77], tl[:77], k, hid)
+    np.testing.assert_array_equal(odd.numpy(), want[:77])
+    bits = torch.from_numpy(kmers.view(np.int32).copy())
+    np.testing.assert_array_equal(
+        sig_min_murmur_plain(bits, tl, k, hid).numpy(), want)
+
+
+@pytest.mark.parametrize("k", [5, 11, 16])
+def test_sig_min_murmur_equals_sigs_from_bases_fwd(k):
+    """The kernel that superseded it: the forward k-mer lows of a batch
+    give sigs_from_bases(mode='fwd') on its bases."""
+    bases, lengths = _reads(400 + k, n=50, maxlen=33, k=k)
+    hid = torch.arange(7, dtype=torch.int64)
+    tl = torch.from_numpy(lengths)
+    got = sig_min_murmur(torch.from_numpy(
+        _kmer_lows(bases, k).astype(np.int64)), tl, k, hid)
+    want = sigs_from_bases(torch.from_numpy(bases), tl, k, hid, mode="fwd")
+    assert torch.equal(got, want)
+
+
+def test_sig_min_murmur_rejects_bad_shapes():
+    with pytest.raises(ValueError, match="k must be"):
+        sig_min_murmur(torch.zeros((2, 3), dtype=torch.int64),
+                       torch.zeros(2, dtype=torch.int32), 17,
+                       torch.zeros(1, dtype=torch.int64))
+    with pytest.raises(ValueError, match="kmer_lo"):
+        sig_min_murmur(torch.zeros((2, 3), dtype=torch.int64),
+                       torch.zeros(3, dtype=torch.int32), 16,
+                       torch.zeros(1, dtype=torch.int64))

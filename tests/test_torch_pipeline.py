@@ -1,5 +1,7 @@
 """Port parity end to end: the port's run_pipeline and CLI (device cpu)
-against the JAX package's run_pipeline, byte-identical SAM and VCF."""
+against the JAX package's run_pipeline, byte-identical SAM and VCF, in
+--threeN, parity and --threeN --undirectional modes; and the port's
+independence of the JAX package (imports, native build)."""
 
 import gzip
 import os
@@ -10,9 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from hashreadmapper_tpu.io.genome import Genome
+from hashreadmapper_tpu.cli import options_from_args as jax_options
 from hashreadmapper_tpu.pipeline.driver import run_pipeline as jax_pipeline
 from hashreadmapper_tpu_torch import cli
+from hashreadmapper_tpu_torch.io.genome import Genome
 from hashreadmapper_tpu_torch.ops.bandtb_kernel import fill_pass, shift_sub
 from hashreadmapper_tpu_torch.ops.minhash_kernel import sigs_from_bases
 from hashreadmapper_tpu_torch.ops.shd_kernel import shd_best
@@ -20,6 +23,8 @@ from hashreadmapper_tpu_torch.ops.swdev_kernel import pass_batched
 from hashreadmapper_tpu_torch.ops.vote_kernel import vote_candidates_fnc
 from hashreadmapper_tpu_torch.pipeline.driver import run_pipeline
 from hashreadmapper_tpu_torch.pipeline.engine import CoarseMapper
+
+from torch_helpers import ACGT, ensure_reference_native, four_strand_reads
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = (sigs_from_bases, vote_candidates_fnc, shd_best, pass_batched,
@@ -55,8 +60,40 @@ def dataset(tmp_path_factory):
     return str(d)
 
 
-def _argv(d, out, chunk):
-    return ["--threeN", "--genomefile", f"{d}/g.fa", "-i", f"{d}/reads.fq.gz",
+@pytest.fixture(scope="module")
+def four_strand_dataset(tmp_path_factory):
+    """tests/test_undirectional.py's scenario: a 40 kb chromosome and 30
+    reads of 80 bp of each strand kind (directional forward and reverse
+    complement, PBAT forward and reverse complement), 90% converted in
+    read space, every seventh with a substitution and every ninth with a
+    3-base deletion; then 6 unconverted reads with 5 copies each, which
+    parity mode's --maxResultsPerMap 4 drops."""
+    d = tmp_path_factory.mktemp("four_strand")
+    rng = np.random.default_rng(33)
+    codes = rng.integers(0, 4, size=40_000, dtype=np.int8)
+    chrom = "".join(ACGT[codes])
+    with open(d / "g.fa", "w") as fh:
+        fh.write(">chrU undirectional test\n" + "\n".join(
+            chrom[i:i + 70] for i in range(0, len(chrom), 70)) + "\n")
+    reads, _, starts, _ = four_strand_reads(rng, codes, 30)
+    reads[::7, 40] = (reads[::7, 40] + 1) % 4
+    seqs = ["".join(ACGT[r]) for r in reads]
+    seqs[::9] = [q[:50] + q[53:] for q in seqs[::9]]
+    plain = [chrom[s:s + 80] for s in starts[:6]]
+    seqs += plain + plain * 4
+    with gzip.open(d / "reads.fq.gz", "wt") as fh:
+        for i, q in enumerate(seqs):
+            fh.write(f"@r{i}\n{q}\n+\n{'I' * len(q)}\n")
+    return str(d), len(seqs)
+
+
+MODES = {"threeN": ["--threeN"], "parity": ["--maxResultsPerMap", "4"],
+         "undirectional": ["--threeN", "--undirectional"]}
+
+
+def _argv(d, out, chunk, mode="threeN"):
+    return MODES[mode] + [
+            "--genomefile", f"{d}/g.fa", "-i", f"{d}/reads.fq.gz",
             "-o", out, "-k", "16", "-m", "16", "--minTableHits", "4",
             "--maxHammingPercent", "0.25", "--batchsize", "128",
             "--maxReadLength", "112", "--probeCap", "16",
@@ -71,17 +108,19 @@ def _outputs(prefix):
 
 
 @pytest.fixture(scope="module")
-def jax_runs(dataset, tmp_path_factory):
-    """The JAX CLI's SAM, VCF and coarse positions per --pipelineChunk."""
-    from hashreadmapper_tpu.cli import options_from_args
+def jax_runs(tmp_path_factory):
+    """The JAX CLI's SAM, VCF and coarse results per (dataset,
+    --pipelineChunk, mode)."""
+    ensure_reference_native()
     cache = {}
 
-    def run(chunk):
-        if chunk not in cache:
+    def run(data, chunk, mode="threeN"):
+        key = (data, chunk, mode)
+        if key not in cache:
             out = str(tmp_path_factory.mktemp("jax") / "jax")
-            res = jax_pipeline(options_from_args(_argv(dataset, out, chunk)))
-            cache[chunk] = _outputs(out) + (res["results"].position,)
-        return cache[chunk]
+            res = jax_pipeline(jax_options(_argv(data, out, chunk, mode)))
+            cache[key] = _outputs(out) + (res["results"],)
+        return cache[key]
     return run
 
 
@@ -94,7 +133,7 @@ def test_sam_vcf_byte_identical_to_jax(dataset, tmp_path, jax_runs, chunk,
     """Device STEP 2 (chunk 0: host-staged pairs; 100: fused into the
     coarse step) and host STEP 2 (opts.step2_device = False, set in code)
     against the JAX CLI; on the CPU no kernel launches."""
-    jsam, jvcf, jpos = jax_runs(chunk)
+    jsam, jvcf, jres = jax_runs(dataset, chunk)
     before = [k.launches for k in KERNELS]
     topts, device = cli.options_from_args(
         _argv(dataset, str(tmp_path / "port"), chunk) + ["--device", "cpu"])
@@ -109,15 +148,73 @@ def test_sam_vcf_byte_identical_to_jax(dataset, tmp_path, jax_runs, chunk,
     body = [ln for ln in tsam.split(b"\n") if ln and not ln.startswith(b"@")]
     assert len(body) == 240
     assert (tres["results"].orientation != 3).mean() > 0.9
-    np.testing.assert_array_equal(tres["results"].position, jpos)
+    np.testing.assert_array_equal(tres["results"].position, jres.position)
+
+
+@pytest.mark.parametrize("branch", ["fused", "staged", "host-fused",
+                                    "host-staged"])
+@pytest.mark.parametrize("mode", ["parity", "undirectional"])
+def test_modes_sam_vcf_byte_identical_to_jax(four_strand_dataset, tmp_path,
+                                             jax_runs, mode, branch):
+    """Parity mode (canonical k-mers, the read-side key drops taken from
+    the whole read set before the chunks) and --threeN --undirectional on
+    the four-strand reads: device STEP 2 fused into the coarse step
+    (--pipelineChunk 64) and on staged pairs (0), and host STEP 2, against
+    the JAX CLI with the same flags."""
+    data, n_reads = four_strand_dataset
+    chunk = 64 if branch.endswith("fused") else 0
+    jsam, jvcf, jres = jax_runs(data, chunk, mode)
+    topts, device = cli.options_from_args(
+        _argv(data, str(tmp_path / "port"), chunk, mode)
+        + ["--device", "cpu"])
+    topts.step2_device = not branch.startswith("host")
+    tres = run_pipeline(topts, device)
+    tsam, tvcf = _outputs(topts.outputfile)
+    assert tsam == jsam
+    assert tvcf == jvcf
+    body = [ln for ln in tsam.split(b"\n") if ln and not ln.startswith(b"@")]
+    assert len(body) == n_reads
+    r = tres["results"]
+    for f in ("orientation", "hamming", "shift", "chromosome_id", "position",
+              "bs_strand"):
+        np.testing.assert_array_equal(getattr(r, f), getattr(jres, f), f)
+    for k in ("probe_overflow", "vote_overflow", "pair_budget_overflow",
+              "probe_tail_overflow", "probe_head_overflow"):
+        assert r.stats[k] == jres.stats[k], k
+    mapped = r.orientation != 3
+    kind = np.repeat(np.arange(4), 30)
+    if mode == "undirectional":
+        for k in range(4):
+            assert mapped[:120][kind == k].mean() > 0.7, k
+        # the strand column tells the PBAT strands from the directional
+        # ones (at --maxHammingPercent 0.25 a stray read may cross over)
+        assert (r.bs_strand[:120][mapped[:120] & (kind >= 2)] == 1).mean() \
+            > 0.9
+        assert (r.bs_strand[:120][kind < 2] == 0).mean() > 0.9
+        assert mapped[120:].all()
+    else:
+        # 90% converted reads are invisible to parity mode; the unconverted
+        # ones map, except the 6 x 5 copies that the key-drop rule removes
+        assert mapped[:120].mean() < 0.2
+        assert not mapped[120:].any() and not r.bs_strand.any()
+
+
+def test_parity_maps_unconverted_reads_without_the_drop_rule(
+        four_strand_dataset, tmp_path):
+    """The same parity run with the default --maxResultsPerMap: nothing is
+    dropped and the 30 unconverted reads map."""
+    data, n_reads = four_strand_dataset
+    argv = _argv(data, str(tmp_path / "port"), 0, "parity")
+    topts, device = cli.options_from_args(argv[2:] + ["--device", "cpu"])
+    assert topts.max_results_per_map == 65535
+    r = run_pipeline(topts, device)["results"]
+    assert (r.orientation[120:] != 3).all()
 
 
 def test_edlib_sam_byte_identical_to_jax(dataset, tmp_path):
     """--mappertype edlib is host-only, so the port takes it unchanged."""
-    from hashreadmapper_tpu.cli import options_from_args
     edlib = ["--mappertype", "edlib"]
-    jopts = options_from_args(_argv(dataset, str(tmp_path / "jax"), 0)
-                              + edlib)
+    jopts = jax_options(_argv(dataset, str(tmp_path / "jax"), 0) + edlib)
     jax_pipeline(jopts)
     topts, device = cli.options_from_args(
         _argv(dataset, str(tmp_path / "port"), 0) + edlib
@@ -170,7 +267,6 @@ def test_genome_of_2_31_bases_raises():
 
 
 @pytest.mark.parametrize("extra,item", [
-    ([], "item 11"), (["--threeN", "--undirectional"], "item 11"),
     (["--threeN", "--mesh", "1", "2"], "item 15"),
     (["--threeN", "--regions", "2"], "item 14")])
 def test_options_outside_the_slice_raise(extra, item):

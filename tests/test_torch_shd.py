@@ -10,7 +10,8 @@ from hashreadmapper_tpu.ops import shd as jshd
 from hashreadmapper_tpu.ops import shd_pallas
 from hashreadmapper_tpu_torch.ops import shd
 from hashreadmapper_tpu_torch.ops.shd_kernel import (
-    BIG, pack_bitplanes, pack_genome_planes, shd_best, shd_best_plain)
+    BIG, pack_bitplanes, pack_genome_planes, shd_best, shd_best_plain,
+    shd_hamming_matrix, shd_hamming_matrix_plain)
 
 
 def _t(a):
@@ -74,7 +75,62 @@ def test_shd_best_matches_pallas_interpret(seed, wr, n_shifts):
     assert (want[:8, 0] == BIG).all()
 
 
-def test_extended_window_location_and_packed_planes():
+@pytest.mark.parametrize("seed,wr,n_shifts", [(0, 2, 64), (1, 3, 96),
+                                              (2, 4, 160), (3, 1, 33)])
+def test_shd_hamming_matrix_matches_pallas_interpret(seed, wr, n_shifts):
+    """Random full-range words (sign bits in use), every shift of every
+    word offset (bit == 0 and shifts across word boundaries)."""
+    (a_hi, a_lo, r_hi, r_lo, mask, _), n_shifts, wa, wr = _shd_inputs(
+        seed, wr=wr, n_shifts=n_shifts)
+    a_hi[:4] = -1                            # all-ones words, sign bit set
+    a_lo[4:8] = np.int32(-2**31)
+    args = (a_hi, a_lo, r_hi, r_lo, mask)
+    want = np.asarray(shd_pallas.shd_hamming_matrix(
+        *[jnp.asarray(a) for a in args], n_shifts, wa, wr, interpret=True))
+    before = shd_hamming_matrix.launches
+    got = shd_hamming_matrix(*[_t(a) for a in args], n_shifts, wa, wr)
+    assert got.dtype == torch.int32 and got.shape == (128, 2, n_shifts)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(shd_hamming_matrix_plain(
+        *[_t(a) for a in args], n_shifts, wa, wr).numpy(), want)
+    assert shd_hamming_matrix.launches == before      # CPU: no launch
+    # any P on the port's side
+    np.testing.assert_array_equal(shd_hamming_matrix_plain(
+        *[_t(a[:37]) for a in args], n_shifts, wa, wr).numpy(), want[:37])
+
+
+@pytest.mark.parametrize("seed,wr,n_shifts", [(4, 2, 64), (5, 4, 160)])
+def test_hamming_matrix_row_min_equals_shd_best(seed, wr, n_shifts):
+    """The kernel that superseded it: the minimum of the matrix over
+    [min_shift, max_shift], earliest shift on ties, is shd_best."""
+    args, n_shifts, wa, wr = _shd_inputs(seed, wr=wr, n_shifts=n_shifts)
+    args = [_t(a) for a in args]
+    args[5] = args[5].clamp(max=n_shifts - 1)        # bounds inside S
+    ham = shd_hamming_matrix(*args[:5], n_shifts, wa, wr).to(torch.int64)
+    s = torch.arange(n_shifts)[None, None, :]
+    lo, hi = args[5][:, 0, None, None], args[5][:, 1, None, None]
+    ham = torch.where((s >= lo) & (s <= hi), ham, torch.full_like(ham, BIG))
+    idx = ham.argmin(dim=2)                           # first occurrence
+    best = torch.gather(ham, 2, idx[:, :, None])[:, :, 0]
+    shift = torch.where(best < BIG, idx, args[5][:, :1].to(torch.int64))
+    want = shd_best(*args, n_shifts, wa, wr)
+    got = torch.stack([best[:, 0], shift[:, 0], best[:, 1], shift[:, 1]],
+                      dim=1).to(torch.int32)
+    assert torch.equal(got, want)
+    assert (want[:, 0] < BIG).sum() > 64
+
+
+def test_shd_hamming_matrix_rejects_a_short_anchor():
+    z = lambda *s: torch.zeros(s, dtype=torch.int32)
+    with pytest.raises(ValueError, match="read past the anchor"):
+        shd_hamming_matrix(z(4, 2, 3), z(4, 2, 3), z(4, 2, 2), z(4, 2, 2),
+                           z(4, 2), 64, 3, 2)
+
+
+@pytest.mark.parametrize("three_n,undirectional", [
+    (True, False), (False, False), (True, True)],
+    ids=["threeN", "parity", "undirectional"])
+def test_extended_window_location_and_packed_planes(three_n, undirectional):
     rng = np.random.default_rng(11)
     ws, lr, p = 64, 40, 96
     genome = rng.integers(0, 4, size=3000, dtype=np.int8)
@@ -90,28 +146,35 @@ def test_extended_window_location_and_packed_planes():
     for g, w in zip(tl, jl):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
-    # reads planted at the window starts, C->T converted
+    # reads planted at the window starts; C->T converted in 3N mode, G->A
+    # (the PBAT strands) for the mirrored evaluation
     reads = np.zeros((p, lr), np.int8)
     for i in range(p):
         s = min(int(pos[i]), 3000 - lr)
         reads[i] = genome[s:s + lr]
-    reads[(reads == 1) & (rng.random(reads.shape) < 0.9)] = 3
+    if undirectional:
+        reads[(reads == 2) & (rng.random(reads.shape) < 0.9)] = 0
+    elif three_n:
+        reads[(reads == 1) & (rng.random(reads.shape) < 0.9)] = 3
     reads[::3] = 3 - reads[::3, ::-1]
     g_hi, g_lo = shd_pallas.pack_genome_planes(jnp.asarray(genome))
     params = jshd.ShdParams(ws, ws + lr, lr, 0.2)
     jplanes = jshd.pack_read_planes(jnp.asarray(reads), jnp.asarray(read_len),
-                                    True)
-    tplanes = shd.pack_read_planes(_t(reads), _t(read_len), True)
+                                    three_n, undirectional=undirectional)
+    tplanes = shd.pack_read_planes(_t(reads), _t(read_len), three_n,
+                                   undirectional)
     for g, w in zip(tplanes, jplanes):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     valid = np.arange(p) % 7 != 0
     want = jshd.shd_pairs_packed_planes(
         g_hi, g_lo, jl.start, jl.length, jl.left, *jplanes,
-        jnp.asarray(read_len), jnp.asarray(valid), params, three_n=True)
+        jnp.asarray(read_len), jnp.asarray(valid), params, three_n=three_n,
+        undirectional=undirectional)
     got = shd.shd_pairs_packed_planes(
         _t(g_hi), _t(g_lo), tl.start, tl.length, tl.left, *tplanes,
         _t(read_len), _t(valid),
-        shd.ShdParams(ws, ws + lr, lr, 0.2), three_n=True)
+        shd.ShdParams(ws, ws + lr, lr, 0.2), three_n=three_n,
+        undirectional=undirectional)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert (np.asarray(want.orientation) != jshd.NONE).sum() > p // 4
