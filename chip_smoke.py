@@ -4,18 +4,24 @@
 
 Phase 0  card, torch and CUDA versions; builds the native host library
          and the kernels through the port's _build.
-Phase 1  each of the eight CUDA kernels against its plain PyTorch version
-         at the main path's shapes (integers: exact), with CUDA-event
-         times, the least time the card could take for the same work
-         (bound_ms) and, where one PyTorch call computes the same function,
-         that call's time; sig_min_murmur against sigs_from_bases('fwd')
-         and the row minimum of shd_hamming_matrix against shd_best.
+Phase 1  each of the nine CUDA kernels (the eight counterparts of the TPU
+         kernels and the fused traceback, which runs the fill's passes and
+         the walk in one launch) against its plain PyTorch version at the
+         main path's shapes (integers: exact), with three times (ms: the
+         device's time a launch, calls back to back between two CUDA
+         events; call_ms: one call on an idle card, the host's enqueue
+         included; host_ms: the host's time to enqueue a call), the least
+         time the card could take for the same work (bound_ms) and, where
+         one PyTorch call computes the same function, that call's three
+         times; sig_min_murmur against sigs_from_bases('fwd') and the row
+         minimum of shd_hamming_matrix against shd_best.
 Phase 2  the flagship 3N run through the port's CLI on an 8 Mbp genome and
          49,152 bisulfite reads, STEP 2 on the card: SAM/VCF checks,
-         planted-read mapping and concordance, the six kernels' launch
-         counts; then the same run with STEP 2 on staged pairs and with
-         host STEP 2 (byte-identical SAM and VCF), and the STEP-2 pair
-         counts.
+         planted-read mapping and concordance, the six launch counts of
+         the path; then the same run with STEP 2 on staged pairs and with
+         host STEP 2 (byte-identical SAM and VCF), the STEP-2 pair counts,
+         launches per batch, and every device launch of one
+         map_reads(with_scores=True) counted under torch.profiler.
 Phase 3  the same coarse mapper on the card and on the CPU (plain
          versions): identical packed rows and overflow vectors, and
          identical fused STEP-2 score rows and traceback entries.
@@ -93,8 +99,42 @@ def log(*args):
     print(*args, flush=True)
 
 
+def device_ms(fn, launches=20, reps=3):
+    """Device time of one fn() in ms: `launches` calls between two CUDA
+    events, enqueued while the card spins in a sleep kernel so that the
+    host is ahead and the calls run back to back; median of `reps`."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(8_000_000)        # a few ms: 20 calls' enqueue
+        start.record()
+        for _ in range(launches):
+            fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / launches)
+    return statistics.median(times)
+
+
+def host_ms(fn, calls=200):
+    """The host's time to enqueue one fn() in ms: `calls` calls in a row
+    without waiting for the card (what a dispatch-bound path pays)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return enqueue / calls * 1e3
+
+
 def time_ms(fn, reps=7, warmup=2):
-    """Median CUDA-event time of fn() in ms over `reps` after warm-up."""
+    """Median CUDA-event time of one fn() in ms over `reps` after warm-up,
+    the card idle before each: the host's time to enqueue is in it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -341,28 +381,43 @@ def phase1():
         torch.cuda.synchronize()
         want = case["plain"]()
         err = max_abs_err(view(got), view(want))
-        ms, plain_ms = time_ms(case["kernel"]), time_ms(case["plain"])
+        ms, call_ms = device_ms(case["kernel"]), time_ms(case["kernel"])
+        plain_ms = time_ms(case["plain"], *case.get("plain_reps", ()))
         outs = got if isinstance(got, tuple) else (got,)
         bound_ms, bound_by = bound(*case["bound"](outs))
-        library_ms = None
+        library_ms = library_call_ms = library_host_ms = None
+        kernel_host_ms = host_ms(case["kernel"])
         if "library" in case:
             lib_out = case["library"]()
             if max_abs_err(lib_out, view(got)) != 0:
                 raise AssertionError(f"{name}: the library call computes "
                                      "another function")
-            library_ms = time_ms(case["library"])
+            library_ms = device_ms(case["library"])
+            library_call_ms = time_ms(case["library"])
+            library_host_ms = host_ms(case["library"])
+        note = case["note"](got) if "note" in case else ""
         log(f"phase1 {name} {shape}: max_abs_err {err} (exact required), "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.5f} ms by {bound_by}, library "
-            f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}")
+            f"kernel {ms:.4f} ms on the device ({call_ms:.4f} ms one call on "
+            f"an idle card, {kernel_host_ms:.4f} ms of the host to enqueue "
+            f"it), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms by "
+            f"{bound_by}, library "
+            + ("none" if library_ms is None else
+               f"{library_ms:.4f} ms on the device ({library_call_ms:.4f} ms "
+               f"one call, {library_host_ms:.4f} ms of the host)") + note)
         if err != 0:
             raise AssertionError(f"{name} {shape}: kernel != plain "
                                  f"(max_abs_err {err})")
-        rec = records.setdefault(case["key"], {
-            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "shape": shape,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms})
+        times = {"ms": ms, "call_ms": call_ms, "host_ms": kernel_host_ms,
+                 "plain_ms": plain_ms, "shape": shape, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": library_ms,
+                 "library_call_ms": library_call_ms,
+                 "library_host_ms": library_host_ms}
+        # the record is the kernel's first case; the others stand beside it
+        rec = records.setdefault(case["key"], {"max_abs_err": 0, **times,
+                                               "other_cases": []})
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if rec["shape"] != shape:
+            rec["other_cases"].append(times)
 
     # the kernels that superseded the two, on the card; these launches
     # are the two kernels' count in the kernels line (they have no caller
@@ -392,6 +447,9 @@ def phase1():
     for key, fn in (("sig_min_murmur", mk.sig_min_murmur),
                     ("shd_hamming_matrix", sk.shd_hamming_matrix)):
         records[key]["launches"] = fn.launches
+    # the single-pass fill's launches so far, all of this phase
+    from hashreadmapper_tpu_torch.ops.bandtb_kernel import fill_pass
+    records["fill_pass"]["own"] = fill_pass.launches
     return records
 
 
@@ -464,15 +522,21 @@ def step2_cases(rng, dev):
     # by the index that the shift amounts give
     eff = begin.to(torch.int64) & bk.shift_bits_mask(2 * lq)
     src = torch.arange(lq, device=dev)[:, None] + eff[None, :]
-    padded = torch.cat([read_t, torch.full_like(read_t, 4),
-                        torch.full_like(read_t, 4)])
-    cases.append(dict(key="shift_sub", name="shift_sub",
-                      shape=f"L={lq} P={p} size={lq} begins in [-1, 128]",
-                      kernel=lambda: bk.shift_sub(read_t, begin, lq),
-                      plain=lambda: bk.shift_sub_plain(read_t, begin, lq),
-                      library=lambda: torch.gather(padded, 0, src),
-                      bound=lambda out: (nbytes(read_t, begin, *out),
-                                         lq * p)))
+    read_t8 = read_t.to(torch.int8)
+    # first the form the traceback takes (int8 codes as the engine hands
+    # them over, pair-major uint8 rows out), then the JAX functions' form
+    for x, pair_major, form in ((read_t8, True, "int8 -> [P, size] uint8"),
+                                (read_t, False, "int32 -> [size, P] int32")):
+        padded = torch.cat([x, torch.full_like(x, 4), torch.full_like(x, 4)])
+        cases.append(dict(
+            key="shift_sub", name="shift_sub",
+            shape=f"L={lq} P={p} size={lq} {form}, begins in [-1, 128]",
+            kernel=lambda x=x, pm=pair_major: bk.shift_sub(x, begin, lq, pm),
+            plain=lambda x=x, pm=pair_major: bk.shift_sub_plain(x, begin, lq,
+                                                                pm),
+            view=(lambda out: out.T) if pair_major else (lambda out: out),
+            library=lambda padded=padded: torch.gather(padded, 0, src),
+            bound=lambda out, x=x: (nbytes(x, begin, *out), lq * p)))
     s10 = swdev.ssw_score_packed_t(read_t, rl, ref_t, fl,
                                    (rl // 2).clamp(min=15), lq)
     qb, qe, rb, re = s10[6], s10[2], s10[5], s10[1]
@@ -491,10 +555,15 @@ def step2_cases(rng, dev):
     # cell (score, three max, the two scans' steps), 20 when it also packs
     # the direction and the run length
     i = torch.arange(lq, device=dev)[None, :]
-    mm, rr, bb = (x.to(torch.int64)[:, None] for x in (m, r, bw))
-    band = (torch.minimum(rr - 1, i + bb) - (i - bb).clamp(min=0)
-            + 1).clamp(min=0)
-    band_cells = int(torch.where((i < mm) & live[:, None], band, 0).sum())
+
+    def cells_of(width, mask):
+        """In-band cells of rows i < m at band width `width`, summed over
+        the pairs of `mask`."""
+        mm, rr, bb = (x.to(torch.int64)[:, None] for x in (m, r, width))
+        band = (torch.minimum(rr - 1, i + bb) - (i - bb).clamp(min=0)
+                + 1).clamp(min=0)
+        return int(torch.where((i < mm) & mask[:, None], band, 0).sum())
+    band_cells = cells_of(bw, live)
 
     def view(out):
         # the kernel never writes a done pair's directions
@@ -514,6 +583,62 @@ def step2_cases(rng, dev):
                           plain=lambda a=args: bk.fill_pass_plain(*a),
                           view=view,
                           bound=lambda out, e=emit: fill_bound(out, e)))
+
+    # the whole traceback in one launch, both entry modes
+    sub_q8 = bk.shift_sub(read_t8, qb, lq, True)
+    sub_r8 = bk.shift_sub(ref_t.to(torch.int8), rb, lq, True)
+    bw0 = (r - m).abs() + 1
+
+    def tb_bound(out, run):
+        """The same work whatever implements it: codes of the pairs that
+        run and every scalar read once, entries, status and widths written
+        once; the in-band cells of every pass the doubling rule requires
+        (widths bw0, 2 bw0, ... up to this run's final width), 12
+        operations a cell and 20 in the last, which also gives the
+        directions.  No direction array: no caller needs it."""
+        ents, status, bw_f = out[:3]
+        n_run = int(run.sum())
+        moved = (nbytes(m, r, s10[0], ents, status, bw_f) + p
+                 + n_run * (lq + lq))
+        ops, width = 0, bw0.clone()
+        for _ in range(bk.n_band_passes(lq, lq) + 1):
+            ops += 12 * cells_of(width, run & (width < bw_f))
+            ops += 20 * cells_of(width, run & (width == bw_f))
+            width = width * 2
+        return moved, ops
+
+    def tb_note(kw):
+        def note(out):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            *_, bw_f, spilled = bk.traceback(sub_q8, sub_r8, m, r, s10[0],
+                                             return_spilled=True, **kw)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - before
+            run = kw.get("need", torch.ones_like(live))
+            passes = torch.where(run, torch.log2(bw_f / bw0).round() + 1, 0)
+            return (f"; {int(run.sum())} pairs run, "
+                    f"{int(passes.sum())} passes in all (most "
+                    f"{int(passes.max())} a pair), {int(spilled)} pairs' "
+                    f"directions spilled to device memory, peak "
+                    f"{peak} B allocated by the call (a [P, m_max, NL] "
+                    f"int16 array would be {2 * p * lq * lq} B)")
+        return note
+    for mode, kw in (
+            ("fused: 48 uint8 entries, runs cut at 63, need mask",
+             dict(n_entries=48, need=need, run_cap=63,
+                  entry_dtype=torch.uint8)),
+            ("staged: 64 int16 entries, every pair", dict(n_entries=64))):
+        args = (sub_q8, sub_r8, m, r, s10[0])
+        run = kw.get("need", torch.ones_like(live))
+        cases.append(dict(
+            key="traceback", name="traceback",
+            shape=f"P={p} LQ=NL={lq} {mode}",
+            kernel=lambda kw=kw: bk.traceback(*args, **kw),
+            plain=lambda kw=kw: bk.traceback_plain(*args, **kw),
+            plain_reps=(2, 1), note=tb_note(kw),
+            bound=lambda out, run=run: tb_bound(out, run)))
     return cases
 
 
@@ -540,15 +665,16 @@ def write_dataset(tmp, rng):
 
 def kernel_wrappers():
     """The wrappers of the six kernels on the CLI's path, by the names of
-    the kernels JSON."""
-    from hashreadmapper_tpu_torch.ops.bandtb_kernel import fill_pass, shift_sub
+    the kernels JSON.  The fill's launch on that path is the fused
+    traceback (all passes and the walk in one)."""
+    from hashreadmapper_tpu_torch.ops.bandtb_kernel import shift_sub, traceback
     from hashreadmapper_tpu_torch.ops.minhash_kernel import sigs_from_bases
     from hashreadmapper_tpu_torch.ops.shd_kernel import shd_best
     from hashreadmapper_tpu_torch.ops.swdev_kernel import pass_batched
     from hashreadmapper_tpu_torch.ops.vote_kernel import vote_candidates_fnc
     return {"minhash": sigs_from_bases, "vote": vote_candidates_fnc,
             "shd_best": shd_best, "sw_pass": pass_batched,
-            "shift_sub": shift_sub, "fill_pass": fill_pass}
+            "shift_sub": shift_sub, "traceback": traceback}
 
 
 def counted(label, fn):
@@ -564,6 +690,9 @@ def counted(label, fn):
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
     log(f"{label} kernel launches: {launches}")
+    if launches["shift_sub"] != 2 * launches["traceback"]:
+        raise AssertionError(f"{label}: a traceback is two shift_sub "
+                             f"launches and one of its own: {launches}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"{label}: a kernel of the path never "
                              f"launched: {launches}")
@@ -603,16 +732,66 @@ def sam_fractions(label, sam_path, n_reads, starts, junk):
 
 def launches_per_batch(label, mapper, padded, lens):
     """Launch counts of one steady map_reads(with_scores) over the pool,
-    per 4,096-read batch."""
+    per 4,096-read batch, and how many of its tracebacks' pairs kept
+    their directions in shared memory."""
+    from hashreadmapper_tpu_torch.ops import bandtb
     kernels = kernel_wrappers()
     for k in kernels.values():
         k.launches = 0
-    mapper.map_reads(padded, lens, with_scores=True)
+    real, seen = bandtb.traceback, []
+
+    def asking_for_spills(*args, need=None, **kw):
+        *out, spilled = real(*args, need=need, return_spilled=True, **kw)
+        seen.append((need.sum(), spilled))
+        return tuple(out)
+    bandtb.traceback = asking_for_spills
+    try:
+        mapper.map_reads(padded, lens, with_scores=True)
+    finally:
+        bandtb.traceback = real
     n_batches = -(-len(lens) // mapper.opts.batchsize)
     per = {name: k.launches / n_batches for name, k in kernels.items()}
+    ran, spilled = (sum(int(x) for x in col) for col in zip(*seen))
     log(f"{label} launches per {mapper.opts.batchsize}-read batch "
-        f"(map_reads with scores, {n_batches} batches): {per}")
+        f"(map_reads with scores, {n_batches} batches): {per}; of the "
+        f"{ran} pairs its {len(seen)} tracebacks ran, {spilled} spilled "
+        f"their directions to device memory")
     return per
+
+
+def profiled_launches(label, mapper, padded, lens):
+    """Every device launch (kernels, copies, fills) of one steady
+    map_reads(with_scores=True) over the pool, under torch.profiler: the
+    count per 4,096-read batch, the device time and the card's busy share
+    of the call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mapper.map_reads(padded, lens, with_scores=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not on_device:
+        raise AssertionError(f"{label}: the profiler saw no device activity")
+    device_s = sum(e.time_range.elapsed_us() for e in on_device) / 1e6
+    by_name = {}
+    for e in on_device:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    n_batches = -(-len(lens) // mapper.opts.batchsize)
+    log(f"{label} torch.profiler, map_reads(with_scores=True) of "
+        f"{len(lens)} reads: {len(on_device)} device launches "
+        f"({len(on_device) / n_batches:.1f} per {mapper.opts.batchsize}-read "
+        f"batch), device time {device_s * 1e3:.3f} ms, wall under the "
+        f"profiler {wall * 1e3:.3f} ms, card busy {device_s / wall:.4f} of "
+        f"the call; most device time: "
+        f"{[(k[:48], n, round(t / 1e3, 3)) for k, (n, t) in top]} "
+        f"(name, launches, ms)")
+    return len(on_device) / n_batches
 
 
 def phase2(tmp):
@@ -673,7 +852,8 @@ def phase2(tmp):
         f"{[round(s, 6) for s in coarse_s]} s); coarse + device STEP 2 "
         f"(scores, traceback, bundle to the host) "
         f"{N_READS / t_step2:.1f} reads/s (median of 3: "
-        f"{[round(s, 6) for s in step2_s]} s); overflow {r.stats}")
+        f"{[round(s, 6) for s in step2_s]} s), {t_coarse / t_step2:.4f} of "
+        f"the coarse rate; overflow {r.stats}")
     if not np.array_equal(r2.position, r.position):
         raise AssertionError("map_reads with scores moved coarse results")
     mapped = np.repeat(r2.orientation != 3, 2)
@@ -690,6 +870,8 @@ def phase2(tmp):
                   int((mapped & (st == 2)).sum())}
     log(f"phase2 STEP-2 pairs: {counts}")
     per_batch = launches_per_batch("phase2", mapper, padded, lens)
+    per_batch["every device launch"] = profiled_launches(
+        "phase2", mapper, padded, lens)
     return launches, per_batch, res, reads, chrom
 
 
@@ -960,21 +1142,35 @@ def main():
             "shd_hamming_matrix": (src + "shd.cu", ref + "shd_pallas.py:256"),
             "sw_pass": (src + "swdev.cu", ref + "swdev_pallas.py:237"),
             "shift_sub": (src + "bandtb.cu", ref + "bandtb.py:123"),
-            "fill_pass": (src + "bandtb.cu", ref + "bandtb.py:355")}
+            "fill_pass": (src + "bandtb.cu", ref + "bandtb.py:355"),
+            # the same pallas_call with the two scans around it
+            # (bandtb.py:516-528, :548-581)
+            "traceback": (src + "bandtb.cu", ref + "bandtb.py:355")}
+    from hashreadmapper_tpu_torch.ops.bandtb_kernel import fill_pass
     kernels = []
     for name, (source, replaces) in meta.items():
         rec = records[name]
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces}
-        if name in launches:
+        # the fill's launch on the main path is the fused traceback: one a
+        # traceback, where the single-pass kernel took nine
+        counted_as = "traceback" if name == "fill_pass" else name
+        if counted_as in launches:
             # counted over the directional flagship CLI run; the other two
             # paths' counts and the per-batch counts beside it
+            path = "flagship --threeN CLI run"
+            if name == "fill_pass":
+                path += (": the fused traceback's launches (hrm_traceback "
+                         "runs every pass of the fill and the walk in one "
+                         "launch, on the row function it shares with "
+                         "hrm_fill_pass); the single-pass kernel's own "
+                         f"launches there: {fill_pass.launches - rec['own']}")
             entry.update(
-                launches=launches[name], path="flagship --threeN CLI run",
-                launches_undirectional=launches_und[name],
-                launches_parity=launches_par[name],
-                launches_per_batch=per_batch[name],
-                launches_per_batch_undirectional=per_batch_und[name])
+                launches=launches[counted_as], path=path,
+                launches_undirectional=launches_und[counted_as],
+                launches_parity=launches_par[counted_as],
+                launches_per_batch=per_batch[counted_as],
+                launches_per_batch_undirectional=per_batch_und[counted_as])
         else:
             # no caller on any path of the system (as in the JAX package):
             # counted over phase 1's cross-checks against the kernels that
@@ -983,10 +1179,13 @@ def main():
                          path="kernel phase cross-check (no caller on the "
                               "main path)")
         entry.update({k: rec[k] for k in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "shape")})
+            "max_abs_err", "ms", "call_ms", "host_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_call_ms", "library_host_ms",
+            "shape", "other_cases")})
         kernels.append(entry)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels,
+                      "device_launches_per_batch":
+                          per_batch["every device launch"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -57,10 +57,14 @@ _SIGNATURES = {
     # read_at, eff_len, seg_len, ref_t, ref_len, terminate, out, max_column,
     # s, p, n_cols, ref_dir, want_mc, stream
     "hrm_sw_pass": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, sh, out, l, p, size, mask, stream
-    "hrm_shift_sub": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # x, sh, out, l, p, size, mask, elem_bytes, pair_major, stream
+    "hrm_shift_sub": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # read_t, ref_t, m, r, bw, done, best, dirs, p, m_max, nl, emit, stream
     "hrm_fill_pass": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # read_s, ref_s, m, r, score1, need, entries, status, bw, scratch,
+    # counters, p, m_max, nl, n_entries, run_cap, entry_bytes, n_passes,
+    # smem_cells, blocks, stream
+    "hrm_traceback": [_P] * 11 + [_I] * 9 + [_P],
     # kmer_lo, lengths, hash_ids, out, n, npos, k, f, stream
     "hrm_sig_min_murmur": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # a_hi, a_lo, r_hi, r_lo, mask, out, p, wa, wr, n_shifts, stream
@@ -226,8 +230,10 @@ def launch(name: str, *args) -> None:
 
 
 def stream(t: torch.Tensor) -> int:
-    """The current CUDA stream of t's device, as a c_void_p value."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream of t's device, as a c_void_p value (the raw
+    handle: building a torch.cuda.Stream object for it costs the host
+    about as much as a launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:

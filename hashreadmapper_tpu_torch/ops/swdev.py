@@ -31,6 +31,17 @@ def shift_bits_mask(n: int) -> int:
     return (1 << (n - 1).bit_length()) - 1 if n > 1 else 0
 
 
+def require_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device without a card raises
+    (nothing falls back to the CPU unless the caller asks for it)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r}: torch.cuda.is_available() "
+                           "is False; pass device='cpu' to run the plain "
+                           "PyTorch versions")
+    return dev
+
+
 def _striped_select(read_t, seg_len, S: int, lq: int):
     """read_at[j, k, p] = read_t[min(j + k*seg_len[p], lq-1), p]; 0 where
     seg_len is outside 1..S (swdev._striped_select)."""
@@ -174,6 +185,7 @@ def ssw_score_dispatch(read_codes, read_len, ref_codes, ref_len, mask_len,
                        device) -> torch.Tensor:
     """Upload one chunk of numpy pairs to `device` and enqueue its score
     passes; returns the [10, P] tensor without synchronising."""
+    device = require_device(device)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return ssw_score_packed(t(read_codes), t(read_len), t(ref_codes),
                             t(ref_len), t(mask_len),
@@ -200,7 +212,8 @@ def ssw_score_collect(packed_dev: torch.Tensor) -> Dict[str, np.ndarray]:
 
 
 def ssw_score_batch(read_codes, read_len, ref_codes, ref_len, mask_len,
-                    device="cpu") -> Dict[str, np.ndarray]:
-    """Forward + reverse over numpy pairs on `device`, results as numpy."""
+                    device="cuda") -> Dict[str, np.ndarray]:
+    """Forward + reverse over numpy pairs on `device` (the card unless the
+    caller asks for "cpu"; raises without one), results as numpy."""
     return ssw_score_collect(ssw_score_dispatch(
         read_codes, read_len, ref_codes, ref_len, mask_len, device))

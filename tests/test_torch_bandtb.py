@@ -1,7 +1,8 @@
-"""Port parity: the banded traceback's staging shift, fill pass and
-run-length walk (PyTorch on the CPU) against the JAX package's
-ops/bandtb.py, its XLA twins and its Pallas kernels in interpret mode.
-All outputs are integers: exact equality."""
+"""Port parity: the banded traceback's staging shift, fill pass and the
+whole traceback (band doubling, fill, run-length walk; PyTorch on the
+CPU) against the JAX package's ops/bandtb.py, its XLA twins and its
+Pallas kernels in interpret mode.  All outputs are integers: exact
+equality."""
 
 import functools
 
@@ -16,8 +17,9 @@ from jax.experimental.pallas import tpu as pltpu
 from hashreadmapper_tpu.ops import bandtb as jbt
 from hashreadmapper_tpu.ops import swdev as jsw
 from hashreadmapper_tpu_torch.ops import bandtb as tbt
-from hashreadmapper_tpu_torch.ops.bandtb_kernel import (fill_pass, shift_sub,
-                                                        shift_sub_plain)
+from hashreadmapper_tpu_torch.ops import swdev as tsw
+from hashreadmapper_tpu_torch.ops.bandtb_kernel import (
+    fill_pass, shift_sub, shift_sub_plain, traceback, traceback_plain)
 
 from test_torch_swdev import indel_pairs
 
@@ -193,7 +195,7 @@ def test_traceback_walk_equals_jax(scored, mode):
         bw0 = np.abs((s10[1] - s10[5]) - (s10[2] - s10[6]))[sel] + 1
         ops, status = tbt.banded_traceback_batch(
             rc[sel], s10[6][sel], s10[2][sel], fc[sel], s10[5][sel],
-            s10[1][sel], s10[0][sel])
+            s10[1][sel], s10[0][sel], "cpu")
         np.testing.assert_array_equal(ops, np.asarray(want[0]))
         np.testing.assert_array_equal(status, np.asarray(want[1]))
     else:
@@ -222,3 +224,177 @@ def test_traceback_walk_equals_jax(scored, mode):
         assert tops.dtype == torch.uint8 and tst.dtype == torch.int8
         np.testing.assert_array_equal(tops.numpy(), np.asarray(jops))
         np.testing.assert_array_equal(tst.numpy(), np.asarray(jst))
+
+
+def crafted_pairs(rng):
+    """128 pairs with hand-set subregion bounds and target scores, for
+    what scored pairs rarely show.  Returns (rc, fc, s10 [10, 128]).
+    0..15   a 3-base deletion after a 70-base match: an M run past 63;
+    16..31  two matching bases, then in turn a skipped ref base and an
+            inserted read base, 40 times, target score out of reach: the
+            band doubles from 1 to the end and the walk runs out of
+            entries;
+    32..127 random codes, bounds with m in [-1, 128] and r in [0, 128],
+            small target scores: failed walks, m <= 0, r <= 1."""
+    n = 128
+    rc = np.full((n, LQ), 4, np.int8)
+    fc = np.full((n, NL), 4, np.int8)
+    s10 = np.zeros((10, n), np.int32)
+    for i in range(n):
+        ref = rng.integers(0, 4, NL).astype(np.int8)
+        if i < 16:
+            read = np.concatenate([ref[10:80], ref[83:113]])
+            qb, qe, rb, re, score = 0, len(read) - 1, 10, 112, 2 * 100 - 4
+        elif i < 32:
+            parts, at = [], 0
+            for k in range(40):
+                parts.append(ref[at:at + 2])
+                at += 2
+                if k % 2 == 0:
+                    at += 1
+                else:
+                    parts.append(rng.integers(0, 4, 1).astype(np.int8))
+            read = np.concatenate(parts)
+            qb, qe, rb, re, score = 0, len(read) - 1, 0, at - 1, 10 ** 6
+        else:
+            read = rng.integers(0, 5, LQ).astype(np.int8)
+            qb = int(rng.integers(0, 100))
+            qe = int(rng.integers(qb - 2, LQ))
+            rb = int(rng.integers(0, 100))
+            re = int(rng.integers(rb - 1, NL))
+            if i % 8 == 0:
+                re = rb                               # r == 1
+            score = int(rng.integers(1, 30))
+        rc[i, :len(read)] = read
+        fc[i] = ref
+        s10[:, i] = [score, re, qe, 0, 0, rb, qb, 0, 0, 0]
+    return rc, fc, s10
+
+
+@pytest.fixture(scope="module")
+def rich(scored):
+    """The 128 scored pairs and the 128 crafted ones, with the port's
+    plain traceback of both modes; asserted to hold every kind of pair."""
+    rng = np.random.default_rng(41)
+    rc2, fc2, s10_2 = crafted_pairs(rng)
+    rc, fc = np.concatenate([scored[0], rc2]), np.concatenate([scored[1], fc2])
+    s10 = np.concatenate([scored[2], s10_2], axis=1)
+    need = ~((s10[9] != 0) | (s10[8] != 0) | (s10[0] == 0) | (s10[1] < 0))
+    m = s10[2] - s10[6] + 1
+    r = s10[1] - s10[5] + 1
+    read_s = shift_sub_plain(_t(rc).T, _t(s10[6]), LQ, pair_major=True)
+    ref_s = shift_sub_plain(_t(fc).T, _t(s10[5]), NL, pair_major=True)
+    out = {}
+    for mode, kw in (("fused", dict(n_entries=tbt.FUSED_ENTRIES,
+                                    need=_t(need), run_cap=63)),
+                     ("dispatch", dict(n_entries=tbt.N_ENTRIES))):
+        before = traceback.launches
+        got = traceback(read_s, ref_s, _t(m), _t(r), _t(s10[0]), **kw)
+        assert traceback.launches == before        # CPU tensors: plain
+        want = traceback_plain(read_s, ref_s, _t(m), _t(r), _t(s10[0]), **kw)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+        out[mode] = tuple(x.numpy() for x in got)
+    ents, status, bw = out["fused"]
+    passes = np.log2(bw // (np.abs(r - m) + 1)).astype(int) + 1
+    kinds = {"status 1": need & (status == 1),
+             "status 2": need & (status == 2),
+             "not needed": ~need,
+             "m <= 0 or r <= 1": need & ((m <= 0) | (r <= 1)),
+             "more than 4 passes": need & (passes > 4),
+             "a run split at 63": need & ((ents >> 2) == 63).any(axis=1)}
+    for kind, mask in kinds.items():
+        assert mask.any(), kind
+    assert (out["dispatch"][1] == 2).any() and (out["dispatch"][1] == 1).any()
+    assert (ents[~need] == 0).all() and (status[~need] == 0).all()
+    return rc, fc, s10, need, out, {k: int(v.sum()) for k, v in kinds.items()}
+
+
+def test_fixture_holds_every_kind_of_pair(rich):
+    counts = rich[5]
+    assert min(counts.values()) >= 1, counts
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("mode", ["dispatch", "fused"])
+def test_traceback_plain_equals_jax_tb_core(rich, mode, use_pallas,
+                                            monkeypatch):
+    """traceback_plain (through _tb_core_t, as the CPU path runs it)
+    against the JAX _tb_core_t with its XLA fill and with its Pallas fill
+    in interpret mode: entries, status and the final band width."""
+    rc, fc, s10, need, out, _ = rich
+    if use_pallas:
+        monkeypatch.setattr(jbt.pl, "pallas_call", functools.partial(
+            pl.pallas_call, interpret=True))
+    read_tt = jnp.asarray(rc).astype(jnp.int32).T
+    ref_tt = jnp.asarray(fc).astype(jnp.int32).T
+    kw = (dict(m_max=LQ, n_entries=jbt.N_ENTRIES) if mode == "dispatch" else
+          dict(m_max=LQ, n_entries=jbt.FUSED_ENTRIES, run_cap=63))
+    jneed = None if mode == "dispatch" else jnp.asarray(need)
+    want = jax.jit(jbt._tb_core_t, static_argnames=(
+        "m_max", "n_entries", "use_pallas", "run_cap"))(
+        read_tt, s10[6], s10[2], ref_tt, s10[5], s10[1], s10[0],
+        use_pallas=use_pallas, need=jneed, **kw)
+    # int8 codes as the engine hands them over, and int32 ones
+    for dtype in (np.int8, np.int32):
+        got = tbt._tb_core_t(
+            _t(rc.astype(dtype)).T, _t(s10[6]), _t(s10[2]),
+            _t(fc.astype(dtype)).T, _t(s10[5]), _t(s10[1]), _t(s10[0]),
+            need=None if mode == "dispatch" else _t(need), **kw)
+        ents, status, bw = (x.numpy() for x in got)
+        assert ents.dtype == np.int16 and status.dtype == np.int8
+        np.testing.assert_array_equal(ents, np.asarray(want[0]))
+        np.testing.assert_array_equal(status, np.asarray(want[1]))
+        live = slice(None) if mode == "dispatch" else need
+        np.testing.assert_array_equal(bw[live], np.asarray(want[2])[live])
+        for g, w in zip((ents, status, bw), out[mode]):
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int32])
+@pytest.mark.parametrize("L,size", [(128, 128), (96, 128)])
+def test_shift_sub_int8_and_pair_major_equal_both_jax_shifts(L, size, dtype):
+    """int8 codes in, and the pair-major [P, size] uint8 layout out: the
+    same values as the Pallas shift everywhere and as the XLA twin where
+    the two JAX shifts agree."""
+    rng = np.random.default_rng(L + size)
+    P = 128
+    x = rng.integers(0, 5, (L, P)).astype(dtype)
+    sh = rng.integers(-1, L + size + 1, P).astype(np.int32)
+    sh[:4] = [-1, 0, L, L + size]
+    rows = shift_sub(_t(x), _t(sh), size).numpy()
+    assert rows.dtype == np.int32 and rows.shape == (size, P)
+    pm = shift_sub(_t(x), _t(sh), size, pair_major=True)
+    assert pm.dtype == torch.uint8 and pm.shape == (P, size)
+    assert pm.is_contiguous()
+    np.testing.assert_array_equal(pm.numpy().T, rows)
+    np.testing.assert_array_equal(
+        pm.numpy(), shift_sub_plain(_t(x), _t(sh), size, True).numpy())
+    np.testing.assert_array_equal(rows, _pallas_shift(x.astype(np.int32), sh,
+                                                      size))
+    xla = np.asarray(jbt._shift_sub_xla(jnp.asarray(x).astype(jnp.int32),
+                                        jnp.asarray(sh), size))
+    agree = (sh & ((1 << (L + size - 1).bit_length()) - 1)) <= L
+    np.testing.assert_array_equal(pm.numpy().T[:, agree], xla[:, agree])
+
+
+@pytest.mark.parametrize("entry", ["ssw_score_batch",
+                                   "banded_traceback_batch"])
+def test_batch_entry_points_run_on_the_card_unless_asked(entry, scored):
+    """No "cpu" default: without a device argument the numpy entry points
+    go to the card, and raise when there is none."""
+    rc, fc, s10 = scored
+    n = 8
+    lens = np.full(n, 30, np.int32)
+    if entry == "ssw_score_batch":
+        call = lambda *dev: tsw.ssw_score_batch(
+            rc[:n], lens, fc[:n], lens + 10, lens // 2, *dev)["score1"]
+    else:
+        call = lambda *dev: tbt.banded_traceback_batch(
+            rc[:n], s10[6][:n], s10[2][:n], fc[:n], s10[5][:n], s10[1][:n],
+            s10[0][:n], *dev)[0]
+    if torch.cuda.is_available():
+        np.testing.assert_array_equal(call(), call("cpu"))
+    else:
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()

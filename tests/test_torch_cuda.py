@@ -297,6 +297,34 @@ def test_shift_sub_kernel_equals_plain(dev, L, size, p):
     assert torch.equal(got, bk.shift_sub_plain(x, sh, size))
 
 
+@pytest.mark.parametrize("pair_major", [False, True])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+@pytest.mark.parametrize("L,p", [(128, 8192), (96, 1000), (128, 333)])
+def test_shift_sub_kernel_takes_both_code_types_and_layouts(dev, L, p, dtype,
+                                                            pair_major):
+    """int8 and int32 codes as they come (no copy before the launch), the
+    [size, P] int32 and the pair-major [P, size] uint8 layouts; P a
+    multiple of the 16-byte loads' pairs, and not (the scalar loads)."""
+    rng = np.random.default_rng(L + p)
+    size = 128
+    x = torch.from_numpy(rng.integers(0, 5, (L, p)).astype(np.int32))
+    if dtype == torch.int32 and not pair_major:
+        x = torch.from_numpy(rng.integers(-2**31, 2**31, (L, p))
+                             .astype(np.int32))              # any value
+    x = x.to(dtype).to(dev)
+    sh = rng.integers(-1, L + size + 1, p).astype(np.int32)
+    sh[0], sh[-1] = -1, L + size
+    sh = torch.from_numpy(sh).to(dev)
+    got = _launched_once(bk.shift_sub,
+                         lambda: bk.shift_sub(x, sh, size, pair_major))
+    want = bk.shift_sub_plain(x, sh, size, pair_major)
+    assert got.dtype == want.dtype and got.is_contiguous()
+    assert torch.equal(got, want)
+    # a view whose first byte is not 16-byte aligned
+    y = torch.cat([x.flatten()[:1], x.flatten()])[1:].view(L, p)
+    assert torch.equal(bk.shift_sub(y, sh, size, pair_major), want)
+
+
 @pytest.mark.parametrize("nl,emit", [(128, False), (128, True), (100, True),
                                      (32, True), (200, True)])
 def test_fill_kernel_equals_plain(dev, nl, emit):
@@ -325,6 +353,87 @@ def test_fill_kernel_equals_plain(dev, nl, emit):
         assert torch.equal(dirs[live], dirs_p[live])
     else:
         assert dirs is None and dirs_p is None
+
+
+def _traceback_case(dev, p, lq, nl, seed):
+    rng = np.random.default_rng(seed)
+    read_t, rl, ref_t, fl = (x.to(dev) for x in _pairs(rng, p, lq, nl))
+    s10 = swdev.ssw_score_packed_t(read_t, rl, ref_t, fl,
+                                   (rl // 2).clamp(min=15), nl)
+    qb, qe, rb, re = s10[6], s10[2], s10[5], s10[1]
+    need = ~((s10[9] != 0) | (s10[8] != 0) | (s10[0] == 0) | (re < 0))
+    # every fourth pair: bounds of its own (m from -1, r from 0), failed
+    # walks among them; every fifth: a score out of reach, so the band
+    # doubles to the end
+    k = torch.arange(p, device=dev)
+    rnd = lambda lo, hi: torch.from_numpy(rng.integers(lo, hi, p).astype(
+        np.int32)).to(dev)
+    odd = k % 4 == 3
+    qb = torch.where(odd, rnd(0, lq // 2), qb)
+    qe = torch.where(odd, qb + rnd(-2, lq // 2), qe)
+    rb = torch.where(odd, rnd(0, nl // 2), rb)
+    re = torch.where(odd, rb + rnd(-1, nl // 2), re)
+    score1 = torch.where(k % 5 == 4, s10[0] + 1000, s10[0])
+    read_s = bk.shift_sub(read_t.to(torch.int8), qb, lq, True)
+    ref_s = bk.shift_sub(ref_t, rb, nl, True)
+    return read_s, ref_s, qe - qb + 1, re - rb + 1, score1, need | odd
+
+
+@pytest.mark.parametrize("mode", ["fused", "staged", "nothing needed"])
+@pytest.mark.parametrize("p,lq,nl", [(301, 128, 128), (150, 96, 32),
+                                     (77, 64, 64), (130, 96, 200),
+                                     (64, 128, 256), (1, 40, 100)])
+def test_traceback_kernel_equals_plain(dev, p, lq, nl, mode, monkeypatch):
+    """One launch per traceback: entries, status and final widths of the
+    fused kernel == traceback_plain, NL of every lane count, m_max != NL,
+    odd P, an empty need mask, bands in shared memory and (with a small
+    share) in the scratch buffer."""
+    read_s, ref_s, m, r, score1, need = _traceback_case(dev, p, lq, nl,
+                                                        p + nl)
+    kw = {"fused": dict(n_entries=48, need=need, run_cap=63,
+                        entry_dtype=torch.uint8),
+          "staged": dict(n_entries=64),
+          "nothing needed": dict(n_entries=48, need=torch.zeros_like(need),
+                                 run_cap=63)}[mode]
+    want = bk.traceback_plain(read_s, ref_s, m, r, score1, **kw)
+    spilled = []
+    for cells in (bk.TB_SMEM_CELLS, 256, 0):
+        monkeypatch.setattr(bk, "TB_SMEM_CELLS", cells)
+        *got, n_spilled = _launched_once(bk.traceback, lambda: bk.traceback(
+            read_s, ref_s, m, r, score1, return_spilled=True, **kw))
+        _equal(got, want)
+        spilled.append(int(n_spilled))
+    if mode == "nothing needed":
+        assert spilled == [0, 0, 0] and not want[0].any()
+    else:
+        assert spilled[0] <= spilled[1] <= spilled[2]
+        assert spilled[2] > 0 or p == 1
+    if mode == "staged" and p > 100:
+        assert (want[1] == 1).any() and (want[2] > (r - m).abs() + 1).any()
+
+
+def test_numpy_entry_points_default_to_the_card(dev):
+    """ssw_score_batch and banded_traceback_batch run on the card when no
+    device is named, and give what the CPU gives."""
+    rng = np.random.default_rng(12)
+    read_t, rl, ref_t, fl = _pairs(rng, 90, 128, 128)
+    rc = read_t.T.contiguous().numpy().astype(np.int8)
+    fc = ref_t.T.contiguous().numpy().astype(np.int8)
+    args = (rc, rl.numpy(), fc, fl.numpy(), np.maximum(15, rl.numpy() // 2))
+    before = swk.pass_batched.launches
+    card = swdev.ssw_score_batch(*args)
+    assert swk.pass_batched.launches == before + 2
+    host = swdev.ssw_score_batch(*args, "cpu")
+    for key in host:
+        np.testing.assert_array_equal(card[key], host[key], key)
+    tb = (rc, host["query_begin"], host["query_end"], fc, host["ref_begin"],
+          host["ref_end"], host["score1"])
+    before = bk.traceback.launches
+    ops, status = bandtb.banded_traceback_batch(*tb)
+    assert bk.traceback.launches == before + 1
+    ops_h, status_h = bandtb.banded_traceback_batch(*tb, "cpu")
+    np.testing.assert_array_equal(ops, ops_h)
+    np.testing.assert_array_equal(status, status_h)
 
 
 def test_score_rows_and_traceback_card_equals_cpu(dev):
@@ -370,3 +479,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
                          False)
     with pytest.raises(ValueError, match="NL=300"):
         bk.fill_pass(z(8, 4), z(300, 4), z(4), z(4), z(4), z(4), 8, False)
+    u8 = lambda *shape: torch.zeros(shape, dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="NL=300"):
+        bk.traceback(u8(4, 8), u8(4, 300), z(4), z(4), z(4), 48)
+    with pytest.raises(ValueError, match="uint8 read_s"):
+        bk.traceback(z(4, 8), z(4, 8), z(4), z(4), z(4), 48)
+    with pytest.raises(ValueError, match="run_cap"):
+        bk.traceback(u8(4, 8), u8(4, 8), z(4), z(4), z(4), 48,
+                     entry_dtype=torch.uint8)

@@ -16,7 +16,8 @@ from hashreadmapper_tpu.cli import options_from_args as jax_options
 from hashreadmapper_tpu.pipeline.driver import run_pipeline as jax_pipeline
 from hashreadmapper_tpu_torch import cli
 from hashreadmapper_tpu_torch.io.genome import Genome
-from hashreadmapper_tpu_torch.ops.bandtb_kernel import fill_pass, shift_sub
+from hashreadmapper_tpu_torch.ops.bandtb_kernel import (fill_pass, shift_sub,
+                                                        traceback)
 from hashreadmapper_tpu_torch.ops.minhash_kernel import sigs_from_bases
 from hashreadmapper_tpu_torch.ops.shd_kernel import shd_best
 from hashreadmapper_tpu_torch.ops.swdev_kernel import pass_batched
@@ -28,7 +29,7 @@ from torch_helpers import ACGT, ensure_reference_native, four_strand_reads
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = (sigs_from_bases, vote_candidates_fnc, shd_best, pass_batched,
-           shift_sub, fill_pass)
+           shift_sub, fill_pass, traceback)
 
 
 @pytest.fixture(scope="module")

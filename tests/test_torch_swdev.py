@@ -128,7 +128,7 @@ def test_score_rows_equal_jax(kind):
     if kind == "indel":
         assert want[9].any() and not want[9].all()    # diag both ways
     wd = jsw.ssw_score_collect(want)
-    td = tsw.ssw_score_batch(rc, rls, fc, fls, masks)
+    td = tsw.ssw_score_batch(rc, rls, fc, fls, masks, "cpu")
     assert wd.keys() == td.keys()
     for k in wd:
         np.testing.assert_array_equal(td[k], wd[k], err_msg=k)
