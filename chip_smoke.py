@@ -4,10 +4,16 @@
 
 Phase 0  card, torch and CUDA versions; builds the native host library
          and the kernels through the port's _build.
-Phase 1  each of the nine CUDA kernels (the eight counterparts of the TPU
-         kernels and the fused traceback, which runs the fill's passes and
-         the walk in one launch) against its plain PyTorch version at the
-         main path's shapes (integers: exact), with three times (ms: the
+Phase 1  each of the eleven CUDA kernels (the eight counterparts of the TPU
+         kernels; the fused traceback, which runs the fill's passes and
+         the walk in one launch; the forward and the reverse score pass,
+         which take the pairs as the engine has them and do the striped
+         layout, the flip and shifts and the second-best search around
+         the column pass in the same launch) against its plain PyTorch
+         version at the main path's shapes (integers: exact), the score
+         passes on short indel pairs and on flagship-like pairs, the vote
+         also on the shared-memory side of its 2,048-id switch, with
+         three times (ms: the
          device's time a launch, calls back to back between two CUDA
          events; call_ms: one call on an idle card, the host's enqueue
          included; host_ms: the host's time to enqueue a call), the least
@@ -17,7 +23,7 @@ Phase 1  each of the nine CUDA kernels (the eight counterparts of the TPU
          minimum of shd_hamming_matrix against shd_best.
 Phase 2  the flagship 3N run through the port's CLI on an 8 Mbp genome and
          49,152 bisulfite reads, STEP 2 on the card: SAM/VCF checks,
-         planted-read mapping and concordance, the six launch counts of
+         planted-read mapping and concordance, the seven launch counts of
          the path; then the same run with STEP 2 on staged pairs and with
          host STEP 2 (byte-identical SAM and VCF), the STEP-2 pair counts,
          launches per batch, and every device launch of one
@@ -93,6 +99,13 @@ INT_OPS_PER_S = 16.75e12
 OPS_PER_HASH = 19
 # shift, shift, xor, xor, or, and, popcount, add per word of one shift
 OPS_PER_SHD_WORD = 8
+# A cell of the striped SW pass, in 32-bit lane instructions.  The values
+# fit int16, so Hopper's fused add-and-max instructions on s16x2 (DPX,
+# issued at the int32 rate) take two cells each, and a word of two cells
+# needs 8 of them: min(vh + score, 253); max with e; the running maximum
+# of pre + j; h_main; two for e_new; the lazy-F max(corr - j, h, 0); the
+# column maximum.  The per-column work of a pair is left out.
+OPS_PER_SW_CELL = 4
 
 
 def log(*args):
@@ -305,7 +318,7 @@ def phase1():
     cases.append(minhash_case("fwd", 4096, 128, 16, win_lens))
     cases.append(minhash_case("canon", 4096, 128, 16, read_lens))
 
-    def vote_case(f, n, c, cap):
+    def vote_case(f, n, c, cap, rng=rng):
         ids = rng.integers(0, 600, size=(f, n, c)).astype(np.int64)
         fill = rng.integers(0, c + 1, size=(f, n, 1))
         ids = np.where(np.arange(c)[None, None, :] < fill, ids, 0xFFFFFFFF)
@@ -323,6 +336,9 @@ def phase1():
     cases.append(vote_case(32, 4096, 16, 8))
     cases.append(vote_case(64, 4096, 16, 8))       # 4F under --undirectional
     cases.append(vote_case(32, 4096, 64, 32))
+    # 4,096 ids, the shared-memory side of the switch (a generator of its
+    # own, as for the flagship-like pairs: the older cases keep their data)
+    cases.append(vote_case(32, 1024, 128, 32, np.random.default_rng(11)))
 
     p, wr, wa, n_shifts = 16384, 4, 10, 160
     r32 = lambda *s: torch.from_numpy(rng.integers(
@@ -447,9 +463,12 @@ def phase1():
     for key, fn in (("sig_min_murmur", mk.sig_min_murmur),
                     ("shd_hamming_matrix", sk.shd_hamming_matrix)):
         records[key]["launches"] = fn.launches
-    # the single-pass fill's launches so far, all of this phase
+    # the single-pass fill's and the unfused striped pass's launches so
+    # far, all of this phase
     from hashreadmapper_tpu_torch.ops.bandtb_kernel import fill_pass
+    from hashreadmapper_tpu_torch.ops.swdev_kernel import pass_batched
     records["fill_pass"]["own"] = fill_pass.launches
+    records["sw_pass"]["own"] = pass_batched.launches
     return records
 
 
@@ -487,6 +506,91 @@ def indel_pairs(rng, n, lq=128, lr=128):
     return rc, rls, fc, fls
 
 
+def flagship_like_pairs(rng, n, lq=128, lr=128, read_len=100):
+    """STEP-2 pairs as the flagship run makes them: 100-base reads planted
+    in 128-base windows with 1% substitutions, a quarter of the pairs
+    unrelated (the other orientation's pair of a mapped read), and a few
+    with read_len 0 or ref_len 0.  Codes 0..3 (C already T), 4-padded."""
+    fc = rng.integers(0, 4, size=(n, lr)).astype(np.int8)
+    fc[fc == 1] = 3
+    start = rng.integers(0, lr - read_len + 1, size=n)
+    reads = fc[np.arange(n)[:, None], start[:, None] + np.arange(read_len)]
+    sub = rng.random(reads.shape) < 0.01
+    reads[sub] = rng.choice([0, 2, 3], size=int(sub.sum()))
+    unrelated = np.arange(n) % 4 == 3
+    reads[unrelated] = rng.choice([0, 2, 3], size=(int(unrelated.sum()),
+                                                   read_len))
+    rc = np.full((n, lq), 4, np.int8)
+    rc[:, :read_len] = reads
+    rls = np.full(n, read_len, np.int32)
+    fls = np.full(n, lr, np.int32)
+    rls[5::1000], rc[5::1000] = 0, 4
+    fls[7::1000], fc[7::1000] = 0, 4
+    return rc, rls, fc, fls
+
+
+def fused_sw_cases(dev, label, pairs, lq):
+    """sw_forward and sw_reverse (all-M certificate included) on one set
+    of pairs, int8 codes as the engine hands them over, each against its
+    plain version and with the bound of the cells its pairs need."""
+    from hashreadmapper_tpu_torch.ops import swdev_kernel as swk
+    rc, rls, fc, fls = pairs
+    p = len(rls)
+    read_t = torch.from_numpy(rc).to(dev).T.contiguous()
+    ref_t = torch.from_numpy(fc).to(dev).T.contiguous()
+    rl = torch.from_numpy(rls).to(dev)
+    fl = torch.from_numpy(fls).to(dev)
+    ml = (rl // 2).clamp(min=15)
+    fwd_rows, rev_rows = [0, 1, 2, 3, 4, 8], [5, 6, 7, 8, 9]
+    fwd = swk.sw_forward_plain(read_t, rl, ref_t, fl, ml, lq)
+    s1, re, qe = fwd["score1"], fwd["ref_end"], fwd["query_end"]
+    rev = swk.sw_reverse_plain(read_t, ref_t, s1, re, qe, lq)
+    # OPS_PER_SW_CELL a cell, as for sw_pass.  Forward: ref_len columns
+    # of read_len cells (no pair here saturates before its last column);
+    # reverse: query_end + 1 cells a column, from ref_end down to the
+    # column where the score reaches score1, or to column 0
+    i64 = lambda t: t.to(torch.int64)
+    cells_f = int((i64(rl) * i64(fl)).sum())
+    cols_r = torch.where(rev["flag2"], re + 1, re - rev["ref_begin"] + 1)
+    cells_r = int((i64(qe + 1) * i64(cols_r)).sum())
+    shape = f"P={p} LQ=n_cols={lq} int8, {label}"
+    out_f = torch.zeros((10, p), dtype=torch.int32, device=dev)
+    out_r = torch.zeros_like(out_f)
+
+    def stack(d, keys):
+        return torch.stack([d[k].to(torch.int32) for k in keys])
+
+    def reverse_plain():
+        d = swk.sw_reverse_plain(read_t, ref_t, s1, re, qe, lq)
+        d["diag"] = swk.diag_fastpath_plain(
+            read_t, ref_t, s1, d["ref_begin"], re, d["query_begin"], qe,
+            d["overflowed"], lq)
+        return stack(d, ("ref_begin", "query_begin", "flag2", "overflowed",
+                         "diag"))
+    return [
+        dict(key="sw_forward", name="sw_forward", shape=shape,
+             kernel=lambda: swk.sw_forward(read_t, rl, ref_t, fl, ml, lq,
+                                           out_f),
+             plain=lambda: stack(swk.sw_forward_plain(
+                 read_t, rl, ref_t, fl, ml, lq),
+                 ("score1", "ref_end", "query_end", "score2", "ref_end2",
+                  "overflowed")),
+             view=lambda out: out[fwd_rows] if out.shape[0] == 10 else out,
+             plain_reps=(2, 1),
+             bound=lambda out: (nbytes(read_t, ref_t, rl, fl, ml)
+                                + 4 * p * len(fwd_rows),
+                                cells_f * OPS_PER_SW_CELL)),
+        dict(key="sw_reverse", name="sw_reverse", shape=shape,
+             kernel=lambda: swk.sw_reverse(read_t, ref_t, s1, re, qe, lq,
+                                           out_r),
+             plain=reverse_plain,
+             view=lambda out: out[rev_rows] if out.shape[0] == 10 else out,
+             plain_reps=(2, 1),
+             bound=lambda out: (nbytes(read_t, ref_t, s1, re, qe)
+                                + 4 * p * len(rev_rows),
+                                cells_r * OPS_PER_SW_CELL))]
+
+
 def step2_cases(rng, dev):
     """The STEP-2 kernels at the fused path's shapes: P = 8,192 pairs
     (one 4,096-read batch), LQ = n_cols = NL = 128."""
@@ -499,23 +603,36 @@ def step2_cases(rng, dev):
     ref_t = torch.from_numpy(fc).to(dev).to(torch.int32).T.contiguous()
     rl = torch.from_numpy(rls).to(dev)
     fl = torch.from_numpy(fls).to(dev)
-    read_at, seg = swdev._striped_layout_t(read_t, rl, lq)
+    read_at, seg = swk._striped_layout_t(read_t, rl, lq)
     sat = torch.full((p,), swk.SAT, dtype=torch.int32, device=dev)
     fwd = (read_at, rl, seg, ref_t, fl, sat, 0, lq, True)
     score1 = swk.pass_batched_plain(*fwd)[0]
     rev = (read_at, rl, seg, ref_t.flip(0).contiguous(), fl, score1, 1, lq,
            False)
-    # per pair, fl columns of rl query cells, about 10 operations a cell
-    # (profile compare, add, three max, two saturating subtracts, the
-    # column maximum); the forward pass never terminates early
-    cells = int((rl.to(torch.int64) * fl.to(torch.int64)).sum())
+    # per pair, rl query cells in each column it runs: all fl of the
+    # forward pass (no pair here saturates), of the reverse pass those up
+    # to the first whose maximum equals score1
+    hit = swk.pass_batched_plain(*rev[:8], True)[3] == score1
+    hit &= torch.arange(lq, device=dev)[:, None] < fl
+    cols = {"forward": fl, "reverse": torch.where(
+        hit.any(dim=0), hit.to(torch.int32).argmax(dim=0).to(torch.int32) + 1,
+        fl)}
+    cells = {k: int((rl.to(torch.int64) * c.to(torch.int64)).sum())
+             for k, c in cols.items()}
     cases = [dict(key="sw_pass", name=f"sw_pass {name}",
-                  shape=f"P={p} S=8 n_cols={lq}",
+                  shape=f"P={p} S=8 n_cols={lq} int32, indel pairs of 25-40 "
+                        "bases",
                   kernel=lambda a=a: swk.pass_batched(*a),
                   plain=lambda a=a: swk.pass_batched_plain(*a),
-                  bound=lambda out, a=a: (nbytes(*a[:6], *out), cells * 10))
+                  bound=lambda out, a=a, n=cells[name.split(",")[0]]: (
+                      nbytes(*a[:6], *out), n * OPS_PER_SW_CELL))
              for name, a in (("forward, max_column", fwd),
                              ("reverse, terminate=score1", rev))]
+    cases += fused_sw_cases(dev, "indel pairs of 25-40 bases",
+                            (rc, rls, fc, fls), lq)
+    cases += fused_sw_cases(dev, "flagship-like pairs of 100 bases",
+                            flagship_like_pairs(np.random.default_rng(12), p,
+                                                lq, lq), lq)
     begin = torch.from_numpy(rng.integers(-1, lq + 1, p).astype(
         np.int32)).to(dev)
     # the one PyTorch call: a gather over the input padded with code 4,
@@ -664,27 +781,35 @@ def write_dataset(tmp, rng):
 
 
 def kernel_wrappers():
-    """The wrappers of the six kernels on the CLI's path, by the names of
-    the kernels JSON.  The fill's launch on that path is the fused
-    traceback (all passes and the walk in one)."""
+    """The wrappers of the seven kernels on the CLI's path, by the names
+    of the kernels JSON.  The fill's launch on that path is the fused
+    traceback (all passes and the walk in one), the striped pass's the
+    forward and the reverse score pass (the column pass with what stands
+    around it in one launch each)."""
     from hashreadmapper_tpu_torch.ops.bandtb_kernel import shift_sub, traceback
     from hashreadmapper_tpu_torch.ops.minhash_kernel import sigs_from_bases
     from hashreadmapper_tpu_torch.ops.shd_kernel import shd_best
-    from hashreadmapper_tpu_torch.ops.swdev_kernel import pass_batched
+    from hashreadmapper_tpu_torch.ops.swdev_kernel import (sw_forward,
+                                                           sw_reverse)
     from hashreadmapper_tpu_torch.ops.vote_kernel import vote_candidates_fnc
     return {"minhash": sigs_from_bases, "vote": vote_candidates_fnc,
-            "shd_best": shd_best, "sw_pass": pass_batched,
-            "shift_sub": shift_sub, "traceback": traceback}
+            "shd_best": shd_best, "sw_forward": sw_forward,
+            "sw_reverse": sw_reverse, "shift_sub": shift_sub,
+            "traceback": traceback}
 
 
 def counted(label, fn):
-    """fn() with the six kernels' launch counts set to 0 just before and
-    read just after: (result, seconds, launches).  Fails when a kernel of
-    the path was never launched, or when jax or the JAX package got
-    imported."""
+    """fn() with the seven kernels' launch counts set to 0 just before
+    and read just after: (result, seconds, launches).  Fails when a kernel
+    of the path was never launched, when the path went through the
+    unfused striped pass (which builds the striped read tensor and the
+    per-column maxima in device memory), or when jax or the JAX package
+    got imported."""
+    from hashreadmapper_tpu_torch.ops.swdev_kernel import pass_batched
     kernels = kernel_wrappers()
     for k in kernels.values():
         k.launches = 0
+    unfused = pass_batched.launches
     t0 = time.perf_counter()
     res = fn()
     wall = time.perf_counter() - t0
@@ -693,6 +818,12 @@ def counted(label, fn):
     if launches["shift_sub"] != 2 * launches["traceback"]:
         raise AssertionError(f"{label}: a traceback is two shift_sub "
                              f"launches and one of its own: {launches}")
+    if launches["sw_forward"] != launches["sw_reverse"] \
+            or pass_batched.launches != unfused:
+        raise AssertionError(
+            f"{label}: a batch's scores are one sw_forward and one "
+            f"sw_reverse launch and no sw_pass: {launches}, sw_pass "
+            f"{pass_batched.launches - unfused}")
     if min(launches.values()) <= 0:
         raise AssertionError(f"{label}: a kernel of the path never "
                              f"launched: {launches}")
@@ -782,6 +913,11 @@ def profiled_launches(label, mapper, padded, lens):
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    # the hand-written kernels, whatever their rank (their names carry the
+    # sources' anonymous namespace and no other)
+    own = {k.split("::")[-1].split("(")[0]: (n, round(t / 1e3, 3))
+           for k, (n, t) in by_name.items()
+           if "(anonymous namespace)::" in k and "at::" not in k}
     n_batches = -(-len(lens) // mapper.opts.batchsize)
     log(f"{label} torch.profiler, map_reads(with_scores=True) of "
         f"{len(lens)} reads: {len(on_device)} device launches "
@@ -790,7 +926,7 @@ def profiled_launches(label, mapper, padded, lens):
         f"profiler {wall * 1e3:.3f} ms, card busy {device_s / wall:.4f} of "
         f"the call; most device time: "
         f"{[(k[:48], n, round(t / 1e3, 3)) for k, (n, t) in top]} "
-        f"(name, launches, ms)")
+        f"(name, launches, ms); the hand-written kernels: {own}")
     return len(on_device) / n_batches
 
 
@@ -1141,21 +1277,30 @@ def main():
                                ref + "minhash_pallas.py:241"),
             "shd_hamming_matrix": (src + "shd.cu", ref + "shd_pallas.py:256"),
             "sw_pass": (src + "swdev.cu", ref + "swdev_pallas.py:237"),
+            # the same pallas_call with what swdev.py builds around it: the
+            # striped layout and second-best search (swdev.py:334-366), the
+            # flip and barrel shifts of the reverse pass (:384-430)
+            "sw_forward": (src + "swdev.cu", ref + "swdev_pallas.py:237"),
+            "sw_reverse": (src + "swdev.cu", ref + "swdev_pallas.py:237"),
             "shift_sub": (src + "bandtb.cu", ref + "bandtb.py:123"),
             "fill_pass": (src + "bandtb.cu", ref + "bandtb.py:355"),
             # the same pallas_call with the two scans around it
             # (bandtb.py:516-528, :548-581)
             "traceback": (src + "bandtb.cu", ref + "bandtb.py:355")}
     from hashreadmapper_tpu_torch.ops.bandtb_kernel import fill_pass
+    from hashreadmapper_tpu_torch.ops.swdev_kernel import pass_batched
+    # the fill's launch on the main path is the fused traceback (one a
+    # traceback, where the single-pass kernel took nine); the striped
+    # pass's are the forward and the reverse score pass
+    counted_as = {"fill_pass": ("traceback",),
+                  "sw_pass": ("sw_forward", "sw_reverse")}
     kernels = []
     for name, (source, replaces) in meta.items():
         rec = records[name]
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces}
-        # the fill's launch on the main path is the fused traceback: one a
-        # traceback, where the single-pass kernel took nine
-        counted_as = "traceback" if name == "fill_pass" else name
-        if counted_as in launches:
+        names = counted_as.get(name, (name,))
+        if names[0] in launches:
             # counted over the directional flagship CLI run; the other two
             # paths' counts and the per-batch counts beside it
             path = "flagship --threeN CLI run"
@@ -1165,12 +1310,19 @@ def main():
                          "launch, on the row function it shares with "
                          "hrm_fill_pass); the single-pass kernel's own "
                          f"launches there: {fill_pass.launches - rec['own']}")
+            if name == "sw_pass":
+                path += (": the launches of hrm_sw_forward and "
+                         "hrm_sw_reverse, which run the column pass they "
+                         "share with hrm_sw_pass on pairs they lay out "
+                         "themselves; hrm_sw_pass's own launches there: "
+                         f"{pass_batched.launches - rec['own']}")
+            total = lambda d: sum(d[n] for n in names)
             entry.update(
-                launches=launches[counted_as], path=path,
-                launches_undirectional=launches_und[counted_as],
-                launches_parity=launches_par[counted_as],
-                launches_per_batch=per_batch[counted_as],
-                launches_per_batch_undirectional=per_batch_und[counted_as])
+                launches=total(launches), path=path,
+                launches_undirectional=total(launches_und),
+                launches_parity=total(launches_par),
+                launches_per_batch=total(per_batch),
+                launches_per_batch_undirectional=total(per_batch_und))
         else:
             # no caller on any path of the system (as in the JAX package):
             # counted over phase 1's cross-checks against the kernels that

@@ -54,9 +54,17 @@ _SIGNATURES = {
     "hrm_vote": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # a_hi, a_lo, r_hi, r_lo, mask, bounds, out, p, wa, wr, n_shifts, stream
     "hrm_shd_best": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # read_at, eff_len, seg_len, ref_t, ref_len, terminate, out, max_column,
-    # s, p, n_cols, ref_dir, want_mc, stream
-    "hrm_sw_pass": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # read_at, read_bytes, eff_len, seg_len, ref_t, ref_bytes, ref_len,
+    # terminate, out, max_column, s, p, n_cols, ref_dir, want_mc, stream
+    "hrm_sw_pass": [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                    _I, _P],
+    # read_t, read_bytes, read_len, ref_t, ref_bytes, ref_len, mask_len, out,
+    # lq, p, n_cols, stream
+    "hrm_sw_forward": [_P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P],
+    # read_t, read_bytes, ref_t, ref_bytes, score1, ref_end, query_end, out,
+    # lq, p, n_cols, lq_mask, nc_mask, dg_mask, stream
+    "hrm_sw_reverse": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _I, _P],
     # x, sh, out, l, p, size, mask, elem_bytes, pair_major, stream
     "hrm_shift_sub": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # read_t, ref_t, m, r, bw, done, best, dirs, p, m_max, nl, emit, stream

@@ -32,7 +32,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
-from .swdev import shift_bits_mask
+from .swdev_kernel import shift_bits_mask
 
 GAP_OPEN = 3
 GAP_EXTEND = 1

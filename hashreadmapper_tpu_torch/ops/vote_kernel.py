@@ -4,8 +4,10 @@ hashreadmapper_tpu/ops/vote_pallas.py::vote_candidates_fnc).
 Per read: merge the F candidate lists, count each distinct non-SENTINEL
 id, keep ids seen in >= min_table_hits tables in ascending id order in
 out_cap slots.  vote_candidates_fnc launches csrc/vote.cu for CUDA tensors
-and runs vote_candidates_fnc_plain for CPU tensors.  Unlike the TPU
-kernel, neither needs C to be a power of two nor N a multiple of 128.
+(a warp a read sorting u32 keys in registers up to 2,048 ids, a block a
+read in shared memory above) and runs vote_candidates_fnc_plain for CPU
+tensors.  Unlike the TPU kernel, neither needs sorted lists, C a power of
+two or N a multiple of 128.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 from .. import _build
 
 SENTINEL = 0xFFFFFFFF
-MAX_MERGE = 16384        # F*C padded to a power of two: 128 KB of smem
+MAX_MERGE = 16384        # F*C padded to a power of two: 64 KB of u32 keys
 
 
 def vote_candidates_fnc_plain(cand_fnc: torch.Tensor, min_table_hits: int,

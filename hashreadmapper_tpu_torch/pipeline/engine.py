@@ -286,8 +286,8 @@ def fused_step2_scores(opts: ProgramOptions, chrom_offset, chrom_len,
     pair_ref_t = collapse(win_t).repeat_interleave(2, dim=1)
     rl32 = read_len.to(torch.int32)
     scores = swdev.ssw_score_packed_t(
-        pair_q_t.to(torch.int32), rl32.repeat_interleave(2),
-        pair_ref_t.to(torch.int32), wl.repeat_interleave(2),
+        pair_q_t, rl32.repeat_interleave(2),
+        pair_ref_t, wl.repeat_interleave(2),
         (rl32 // 2).clamp(min=15).repeat_interleave(2), ws)
     if opts.step2_device_traceback:
         tb_ops, tb_status = bandtb.fused_traceback_t(pair_q_t, pair_ref_t,

@@ -71,6 +71,40 @@ def test_vote_kernel_equals_plain(dev, f, c, min_hits, cap):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+@pytest.mark.parametrize("f,c,n", [
+    (1, 1, 5), (2, 16, 33), (4, 16, 1), (8, 16, 257), (16, 16, 31),
+    (32, 16, 257), (64, 16, 129), (32, 32, 65), (32, 64, 33),   # E 1 .. 64
+    (3, 5, 77), (32, 17, 9), (6, 6, 40), (5, 100, 21),          # padded m
+    (33, 64, 17), (64, 64, 9), (16, 1024, 3)])                  # shared mem
+def test_vote_kernel_every_width(dev, f, c, n, order):
+    """Every register width E = m_pad / 32 of the warp kernel, F*C that is
+    no power of two, both sides of the 2,048-id switch to the
+    shared-memory kernel, odd N and N = 1, lists sorted and not; a row of
+    equal ids, a row of distinct ids with the top bit set, empty rows."""
+    rng = np.random.default_rng(f * 1000 + c)
+    ids = rng.integers(0, max(8, f * c // 6), size=(f, n, c)).astype(np.int64)
+    fill = rng.integers(0, c + 1, size=(f, n, 1))
+    ids = np.where(np.arange(c)[None, None, :] < fill, ids, 0xFFFFFFFF)
+    ids[:, 0] = 0xFFFFFFFF
+    if n > 2:
+        ids[:, 1] = 7
+        ids[:, 2] = np.arange(f * c).reshape(f, c) + 2**31
+    if order == "sorted":
+        ids = np.sort(ids, axis=2)
+    cand = torch.from_numpy(ids).to(dev)
+    for min_hits, cap in ((1, 8), (3, 5), (2, 0)):
+        got = _launched_once(vk.vote_candidates_fnc,
+                             lambda: vk.vote_candidates_fnc(cand, min_hits,
+                                                            cap))
+        want = vk.vote_candidates_fnc_plain(cand, min_hits, cap)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+    if n > 2:
+        kept = vk.vote_candidates_fnc_plain(cand, 1, 8)[2]
+        assert kept[:3].tolist() == [0, 1, f * c]
+
+
 @pytest.mark.parametrize("wr,n_shifts", [(1, 32), (2, 64), (4, 160),
                                          (3, 50)])
 def test_shd_best_kernel_equals_plain(dev, wr, n_shifts):
@@ -274,7 +308,7 @@ def test_sw_pass_kernel_equals_plain(dev, p, lq, lr):
     columns with terminate = the forward best."""
     rng = np.random.default_rng(p)
     read_t, rl, ref_t, fl = (x.to(dev) for x in _pairs(rng, p, lq, lr))
-    read_at, seg = swdev._striped_layout_t(read_t, rl, lq)
+    read_at, seg = swk._striped_layout_t(read_t, rl, lq)
     sat = torch.full((p,), swk.SAT, dtype=torch.int32, device=dev)
     fwd = (read_at, rl, seg, ref_t, fl, sat, 0, lr, True)
     got = _launched_once(swk.pass_batched, lambda: swk.pass_batched(*fwd))
@@ -283,6 +317,131 @@ def test_sw_pass_kernel_equals_plain(dev, p, lq, lr):
            False)
     _equal(_launched_once(swk.pass_batched, lambda: swk.pass_batched(*rev)),
            swk.pass_batched_plain(*rev))
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+@pytest.mark.parametrize("p,lq,lr", [(1, 16, 16), (35, 32, 40), (77, 48, 64),
+                                     (50, 64, 96), (21, 80, 128),
+                                     (131, 96, 100), (30, 112, 128),
+                                     (257, 128, 128), (64, 128, 128),
+                                     (48, 128, 128)])
+def test_sw_pass_kernel_codes_rows_and_early_exits(dev, p, lq, lr, dtype):
+    """S = 1 .. 8; odd P, P that is and is not a multiple of a block's 32
+    pairs; int8 and int32 codes as they come; with and without max_column;
+    terminate = 0 (pairs stop at their first column of maximum 0) and
+    ref_len = 0 (no pair runs a column: max_column is all 0)."""
+    rng = np.random.default_rng(p + lq)
+    read_t, rl, ref_t, fl = (x.to(dev) for x in _pairs(rng, p, lq, lr))
+    rl[:3] = torch.tensor([0, 1, min(17, lq)])[:min(3, p)].to(dev)
+    read_at, seg = swk._striped_layout_t(read_t, rl, lq)
+    read_at, ref_t = read_at.to(dtype), ref_t.to(dtype)
+    sat = torch.full((p,), swk.SAT, dtype=torch.int32, device=dev)
+    zero = torch.zeros_like(sat)
+    for want_mc in (True, False):
+        for ref_len, term in ((fl, sat), (fl, zero), (zero, sat)):
+            args = (read_at, rl, seg, ref_t, ref_len, term, 0, lr, want_mc)
+            got = _launched_once(swk.pass_batched,
+                                 lambda: swk.pass_batched(*args))
+            _equal(got, swk.pass_batched_plain(*args))
+        score1 = swk.pass_batched_plain(read_at, rl, seg, ref_t, fl, sat, 0,
+                                        lr, False)[0]
+        rev = (read_at, rl, seg, ref_t.flip(0).contiguous(), fl, score1, 1,
+               lr, want_mc)
+        _equal(_launched_once(swk.pass_batched,
+                              lambda: swk.pass_batched(*rev)),
+               swk.pass_batched_plain(*rev))
+    mc = swk.pass_batched(read_at, rl, seg, ref_t, zero, sat, 0, lr, True)[3]
+    assert mc.shape == (lr, p) and not mc.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+@pytest.mark.parametrize("lq,n_cols,n", [(128, 128, 40), (64, 96, 40),
+                                         (100, 120, 40), (128, 128, 48),
+                                         (128, 128, 64), (128, 128, 333)])
+def test_sw_forward_and_reverse_kernels_equal_plain(dev, lq, n_cols, n,
+                                                    dtype):
+    """The fused entries on the CPU tests' edge pairs (read_len 0, 1, 16,
+    17, LQ; ref_len 0; saturating; mask_len 14 and 15; second best on
+    either side of the window and at hi + 1; degenerate forward results
+    into the reverse pass): one launch each, rows written in place, every
+    row equal to the plain versions', the all-M certificate in row 9
+    included.  P 64 takes the 16-byte loads, P 48 half fills a block."""
+    from torch_helpers import SW_EDGE, sw_edge_pairs
+    rc, rls, fc, fls, masks = sw_edge_pairs(lq + n_cols, lq, n_cols, n)
+    t = lambda a: torch.from_numpy(a).to(dev)
+    read_t = t(rc).T.contiguous().to(dtype)
+    ref_t = t(fc).T.contiguous().to(dtype)
+    args = (read_t, t(rls), ref_t, t(fls), t(masks), n_cols)
+    out = torch.full((10, n), -7, dtype=torch.int32, device=dev)
+    assert _launched_once(swk.sw_forward,
+                          lambda: swk.sw_forward(*args, out)) is out
+    fwd = swk.sw_forward_plain(*args)
+    for row, key in ((0, "score1"), (1, "ref_end"), (2, "query_end"),
+                     (3, "score2"), (4, "ref_end2"), (8, "overflowed")):
+        assert torch.equal(out[row], fwd[key].to(torch.int32)), key
+    assert (out[[5, 6, 7, 9]] == -7).all()
+    k = SW_EDGE["degenerate into reverse"]
+    out[1, k] = out[2, k] = out[1, k + 1] = out[2, k + 2] = -1
+    s1, re, qe = out[0].clone(), out[1].clone(), out[2].clone()
+    _launched_once(swk.sw_reverse,
+                   lambda: swk.sw_reverse(read_t, ref_t, out[0], out[1],
+                                          out[2], n_cols, out))
+    rev = swk.sw_reverse_plain(read_t, ref_t, s1, re, qe, n_cols)
+    for row, key in ((5, "ref_begin"), (6, "query_begin"), (7, "flag2")):
+        assert torch.equal(out[row], rev[key].to(torch.int32)), key
+    assert torch.equal(out[8] != 0, fwd["overflowed"] | rev["overflowed"])
+    diag = swk.diag_fastpath_plain(read_t, ref_t, s1, rev["ref_begin"], re,
+                                   rev["query_begin"], qe, out[8] != 0,
+                                   n_cols)
+    assert torch.equal(out[9] != 0, diag) and diag.any()
+    assert torch.equal(out[0], s1) and torch.equal(out[1], re)
+    # without a tensor to write into: a new one, rows 0-4 and 8 / 5-8
+    fresh = swk.sw_forward(*args)
+    assert torch.equal(fresh[:5], torch.stack([fwd[key] for key in (
+        "score1", "ref_end", "query_end", "score2", "ref_end2")]))
+    fresh = swk.sw_reverse(read_t, ref_t, s1, re, qe, n_cols)
+    assert torch.equal(fresh[8] != 0, rev["overflowed"])
+    assert torch.equal(fresh[5], rev["ref_begin"])
+
+
+@pytest.mark.parametrize("read_len", [1, 16, 32, 100, 128])
+def test_sw_kernels_on_reads_of_one_length(dev, read_len):
+    """Every pair of a warp with the same segLen (the flagship's reads of
+    one length): the column loop without the row masks.  Reads planted in
+    their 128-base windows with substitutions, a third unrelated."""
+    rng = np.random.default_rng(read_len)
+    p, lq = 203, 128
+    fc = rng.integers(0, 4, (p, lq)).astype(np.int8)
+    start = rng.integers(0, lq - read_len + 1, p)
+    reads = fc[np.arange(p)[:, None], start[:, None] + np.arange(read_len)]
+    sub = rng.random(reads.shape) < 0.03
+    reads[sub] = rng.integers(0, 4, int(sub.sum()))
+    reads[::3] = rng.integers(0, 4, reads[::3].shape)
+    rc = np.full((p, lq), 4, np.int8)
+    rc[:, :read_len] = reads
+    t = lambda a: torch.from_numpy(a).to(dev)
+    read_t, ref_t = t(rc).T.contiguous(), t(fc).T.contiguous()
+    rl = torch.full((p,), read_len, dtype=torch.int32, device=dev)
+    fl = t(rng.integers(read_len, lq + 1, p).astype(np.int32))
+    ml = (rl // 2).clamp(min=15)
+    read_at, seg = swk._striped_layout_t(read_t, rl, lq)
+    sat = torch.full((p,), swk.SAT, dtype=torch.int32, device=dev)
+    args = (read_at.to(torch.int8), rl, seg, ref_t, fl, sat, 0, lq, True)
+    _equal(swk.pass_batched(*args), swk.pass_batched_plain(*args))
+    out = swk.sw_forward(read_t, rl, ref_t, fl, ml, lq)
+    fwd = swk.sw_forward_plain(read_t, rl, ref_t, fl, ml, lq)
+    swk.sw_reverse(read_t, ref_t, out[0], out[1], out[2], lq, out)
+    rev = swk.sw_reverse_plain(read_t, ref_t, fwd["score1"], fwd["ref_end"],
+                               fwd["query_end"], lq)
+    ovf = fwd["overflowed"] | rev["overflowed"]
+    diag = swk.diag_fastpath_plain(
+        read_t, ref_t, fwd["score1"], rev["ref_begin"], fwd["ref_end"],
+        rev["query_begin"], fwd["query_end"], ovf, lq)
+    want = (fwd["score1"], fwd["ref_end"], fwd["query_end"], fwd["score2"],
+            fwd["ref_end2"], rev["ref_begin"], rev["query_begin"],
+            rev["flag2"], ovf, diag)
+    assert torch.equal(out, torch.stack([x.to(torch.int32) for x in want]))
+    assert diag.any() and (read_len < 127 or ovf.any())
 
 
 @pytest.mark.parametrize("L,size,p", [(128, 128, 300), (96, 128, 33),
@@ -420,9 +579,10 @@ def test_numpy_entry_points_default_to_the_card(dev):
     rc = read_t.T.contiguous().numpy().astype(np.int8)
     fc = ref_t.T.contiguous().numpy().astype(np.int8)
     args = (rc, rl.numpy(), fc, fl.numpy(), np.maximum(15, rl.numpy() // 2))
-    before = swk.pass_batched.launches
+    before = swk.sw_forward.launches, swk.sw_reverse.launches
     card = swdev.ssw_score_batch(*args)
-    assert swk.pass_batched.launches == before + 2
+    assert (swk.sw_forward.launches, swk.sw_reverse.launches) == (
+        before[0] + 1, before[1] + 1)
     host = swdev.ssw_score_batch(*args, "cpu")
     for key in host:
         np.testing.assert_array_equal(card[key], host[key], key)
@@ -477,6 +637,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="S=9"):
         swk.pass_batched(z(9, 16, 4), z(4), z(4), z(8, 4), z(4), z(4), 0, 8,
                          False)
+    with pytest.raises(ValueError, match="LQ=129"):
+        swk.sw_forward(z(129, 4), z(4), z(8, 4), z(4), z(4), 8)
+    with pytest.raises(ValueError, match=r"out must be \[10, P\] int32"):
+        swk.sw_reverse(z(16, 4), z(8, 4), z(4), z(4), z(4), 8, z(4, 4))
     with pytest.raises(ValueError, match="NL=300"):
         bk.fill_pass(z(8, 4), z(300, 4), z(4), z(4), z(4), z(4), 8, False)
     u8 = lambda *shape: torch.zeros(shape, dtype=torch.uint8, device=dev)

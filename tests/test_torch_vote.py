@@ -69,3 +69,51 @@ def test_vote_wrapper_on_cpu_is_plain():
     got = mi.vote_candidates_fnc_auto(cand, 2, 4)
     _check(got, vote_candidates_fnc_plain(cand, 2, 4))
     assert vote_candidates_fnc.launches == before
+
+
+def _variant(kind, f, c, n=128):
+    """[F, N, C] u32 lists of one kind, with (min_table_hits, out_cap)."""
+    rng = np.random.default_rng(f * 131 + c)
+    if kind == "equal":                     # one id in every slot
+        return np.full((f, n, c), 77, np.uint32), 1, 4
+    if kind == "distinct":                  # num_kept = F*C > out_cap
+        ids = rng.permutation(f * c * 3)[:f * c].astype(np.uint32) + 2**31
+        cand = np.broadcast_to(ids.reshape(f, 1, c), (f, n, c)).copy()
+        return np.sort(cand, axis=2), 1, 8
+    cand = _cand(f * 7 + c, f, n, c, id_range=max(c + 1, f * c // 5))
+    if kind == "unsorted":
+        cand = rng.permuted(cand, axis=2)   # SENTINELs anywhere in a list
+    return cand, 2, (0 if kind == "out_cap 0" else 8)
+
+
+@pytest.mark.parametrize("kind", ["sorted", "unsorted", "equal", "distinct",
+                                  "out_cap 0"])
+@pytest.mark.parametrize("f,c", [(1, 1), (2, 16), (32, 16), (64, 16),
+                                 (32, 64), (64, 64)])
+def test_vote_plain_matches_jax_at_every_merge_width(f, c, kind):
+    """F*C = 1, 32, 512, 1,024 (the 64 lists of --undirectional), 2,048 and
+    4,096: the widths on either side of the CUDA kernel's register and
+    shared-memory paths.  Sorted lists go against the Pallas kernel in
+    interpret mode (C is a power of two), the others against the XLA
+    vote.  Both merge ascending lists at these C, so the JAX side is
+    given each list sorted: the vote depends on the ids of a read, not on
+    their order, and the port sorts whatever it is given."""
+    cand, min_hits, cap = _variant(kind, f, c)
+    in_order = np.sort(cand, axis=2)
+    if kind == "sorted":
+        assert np.array_equal(cand, in_order)
+        want = vote_pallas.vote_candidates_fnc(jnp.asarray(cand), min_hits,
+                                               cap, interpret=True)
+    else:
+        if kind == "unsorted" and c > 1:
+            assert not np.array_equal(cand, in_order)
+        want = jmi.vote_candidates(jnp.asarray(in_order.transpose(1, 0, 2)),
+                                   min_hits, cap)
+    got = vote_candidates_fnc_plain(torch.from_numpy(cand.astype(np.int64)),
+                                    min_hits, cap)
+    _check(got, want)
+    assert got[0].shape == (128, cap) and got[1].shape == (128, cap)
+    if kind == "equal":
+        assert (got[2].numpy() == 1).all() and (got[1][:, 0] == f * c).all()
+    if kind == "distinct":
+        assert (got[2].numpy() == f * c).all()

@@ -9,11 +9,14 @@ loads it ("file too short"), and that process has no native library for
 the rest of its life.  The port's own build (_build.build_native) writes
 whole files only, from the same sources with the same C interface, so the
 reference loader is pointed at it unless it already holds a library.
+
+The module itself imports neither jax nor the JAX package (only
+ensure_reference_native does), so the card tests, which run on a machine
+without jax, share its fixtures.
 """
 
 import numpy as np
 
-from hashreadmapper_tpu import native as ref_native
 from hashreadmapper_tpu_torch import _build
 
 ACGT = np.array(list("ACGT"))
@@ -21,6 +24,7 @@ ACGT = np.array(list("ACGT"))
 
 def ensure_reference_native():
     """The JAX package's native library handle, never None."""
+    from hashreadmapper_tpu import native as ref_native
     if ref_native._lib is None:
         ref_native._SO_PATH = _build.build_native()
         ref_native._load_attempted = False
@@ -46,3 +50,76 @@ def four_strand_reads(rng, chrom_bases, n_per, read_len=80, conv=0.9):
     reads[g_conv] = 0
     lengths = np.full(4 * n_per, read_len, dtype=np.int32)
     return reads.astype(np.int8), lengths, starts, kind
+
+
+# index of each special pair of sw_edge_pairs
+SW_EDGE = {"read_len 0": 0, "read_len 1": 1, "read_len 16": 2,
+           "read_len 17": 3, "read_len LQ": 4, "ref_len 0": 5,
+           "saturating": 6, "mask_len 14": 7, "second best left": 8,
+           "second best right": 9, "second best at hi + 1": 10,
+           "degenerate into reverse": 11}
+
+
+def sw_edge_pairs(seed, lq, n_cols, n=40):
+    """STEP-2 pairs for the forward and reverse score passes, codes 0..4
+    and 4-padded: (read_codes [n, lq] int8, read_len, ref_codes
+    [n, n_cols] int8, ref_len, mask_len).  The first pairs are the edge
+    cases named in SW_EDGE (n_cols >= 96 for the second-best ones); the
+    rest are reads cut from their ref with substitutions, every third
+    random."""
+    rng = np.random.default_rng(seed)
+    rc = np.full((n, lq), 4, np.int8)
+    fc = np.full((n, n_cols), 4, np.int8)
+    rls = np.zeros(n, np.int32)
+    fls = np.zeros(n, np.int32)
+
+    def put(i, read, ref):
+        rc[i, :len(read)] = read
+        fc[i, :len(ref)] = ref
+        rls[i], fls[i] = len(read), len(ref)
+
+    for i in range(n):
+        fl = int(rng.integers(30, n_cols + 1))
+        ref = rng.integers(0, 4, fl).astype(np.int8)
+        rl = int(rng.integers(10, min(lq, fl) + 1))
+        if i % 3 == 0:
+            read = rng.integers(0, 5, rl).astype(np.int8)
+        else:
+            start = int(rng.integers(0, fl - rl + 1))
+            read = ref[start:start + rl].copy()
+            sub = rng.random(rl) < 0.06
+            read[sub] = rng.integers(0, 4, int(sub.sum()))
+        put(i, read, ref)
+    e = SW_EDGE
+    for key, rl in (("read_len 0", 0), ("read_len 1", 1), ("read_len 16", 16),
+                    ("read_len 17", 17), ("read_len LQ", lq)):
+        ref = rng.integers(0, 4, n_cols).astype(np.int8)
+        rc[e[key]] = 4
+        put(e[key], np.resize(ref[3:], rl), ref)
+    fc[e["ref_len 0"]] = 4
+    fls[e["ref_len 0"]] = 0
+    # the whole ref copied: 127+ matches saturate the byte mode at LQ 128
+    ref = rng.integers(0, 4, n_cols).astype(np.int8)
+    rc[e["saturating"]] = 4
+    put(e["saturating"], ref[:min(lq, n_cols)], ref)
+    # a 20-base read twice in its ref: an exact copy after one with two
+    # substitutions, or before a second exact one (the first wins, and the
+    # second outscores the decaying tail of the first); and the read's last
+    # 10 bases ending exactly one column past the masked window (hi + 1)
+    read = rng.integers(0, 4, 20).astype(np.int8)
+    weak = read.copy()
+    weak[[6, 13]] = (weak[[6, 13]] + 1) % 4
+    for key, exact_at, other, other_at in (
+            ("second best left", 70, weak, 5),
+            ("second best right", 10, read, 60),
+            ("second best at hi + 1", 10, read[10:], 36)):
+        ref = np.full(96, 4, np.int8)         # code 4 matches nothing
+        ref[exact_at:exact_at + 20] = read
+        ref[other_at:other_at + len(other)] = other
+        rc[e[key]] = 4
+        fc[e[key]] = 4
+        put(e[key], read, ref)
+    masks = np.maximum(15, rls // 2).astype(np.int32)
+    masks[e["mask_len 14"]] = 14
+    masks[12::9] = 10
+    return rc, rls, fc, fls, masks
