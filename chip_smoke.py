@@ -4,15 +4,18 @@
 
 Phase 0  card, torch and CUDA versions; builds the native host library
          and the kernels through the port's _build.
-Phase 1  each of the eleven CUDA kernels (the eight counterparts of the TPU
+Phase 1  each of the twelve CUDA kernels (the eight counterparts of the TPU
          kernels; the fused traceback, which runs the fill's passes and
          the walk in one launch; the forward and the reverse score pass,
          which take the pairs as the engine has them and do the striped
          layout, the flip and shifts and the second-best search around
-         the column pass in the same launch) against its plain PyTorch
-         version at the main path's shapes (integers: exact), the score
-         passes on short indel pairs and on flagship-like pairs, the vote
-         also on the shared-memory side of its 2,048-id switch, with
+         the column pass in the same launch; the coarse mapper's SHD
+         stage, read planes to orientation, in one launch) against its
+         plain PyTorch version at the main path's shapes (integers:
+         exact), the score passes on short indel pairs and on
+         flagship-like pairs, the vote also on the shared-memory side of
+         its 2,048-id switch, shd_best also on the main path's shift
+         bounds, the fused SHD stage on planted reads, with
          three times (ms: the
          device's time a launch, calls back to back between two CUDA
          events; call_ms: one call on an idle card, the host's enqueue
@@ -87,25 +90,47 @@ OVERFLOW_KEYS = ("probe_overflow", "vote_overflow", "pair_budget_overflow",
                  "probe_tail_overflow", "probe_head_overflow")
 CHR1_LEN = 248_956_422          # GRCh38 chr1
 # The card's peaks, for bound_ms: device memory 3.35 TB/s (H100 SXM data
-# sheet); integer operations 16.75e12 a second, from the data sheet's 67
-# TFLOP/s of float32 (128 lanes an SM, 2 operations an FMA) and Hopper's
-# 64 int32 lanes an SM: 67e12 / 2 / 2.
+# sheet); instructions by the pipe they issue on, in lanes a clock a
+# multiprocessor, over the data sheet's clock (its 67 TFLOP/s of float32
+# are 132 SMs x 128 lanes x 2 operations an FMA x 1.98 GHz).  The pipes,
+# as hashreadmapper_tpu_torch/tools/int_rates.py measures them on the
+# H100 (PERF.md section 6): logic, shifts, compares, selects, min / max
+# and the s16x2 DPX instructions on the ALU pipe, 64 lanes; multiply-adds
+# (IMAD) on the FMA pipe beside it, 64; popcounts on a pipe of their own,
+# 16; an add on either of the first two, as the compiler places it; and
+# four schedulers issue 128 lanes in all.  The time of a mix is the
+# largest of its pipes' times and its issue time.
 MEM_BYTES_PER_S = 3.35e12
-INT_OPS_PER_S = 16.75e12
-# 32-bit integer operations of one murmur64 fmix of (k-mer + hash id)
-# kept against a running 64-bit minimum: two 64-bit multiplies (4
-# multiply-adds each), three 64-bit xor-shifts (2 each), the add with
-# carry (2) and the compare-and-keep (3)
-OPS_PER_HASH = 19
-# shift, shift, xor, xor, or, and, popcount, add per word of one shift
-OPS_PER_SHD_WORD = 8
-# A cell of the striped SW pass, in 32-bit lane instructions.  The values
-# fit int16, so Hopper's fused add-and-max instructions on s16x2 (DPX,
-# issued at the int32 rate) take two cells each, and a word of two cells
-# needs 8 of them: min(vh + score, 253); max with e; the running maximum
-# of pre + j; h_main; two for e_new; the lazy-F max(corr - j, h, 0); the
-# column maximum.  The per-column work of a pair is left out.
-OPS_PER_SW_CELL = 4
+SM_CLOCKS_PER_S = 67e12 / (128 * 2)
+PIPE_LANES = {"alu": 64, "fma": 64, "popc": 16}
+ISSUE_LANES = 128
+# 32-bit instructions of one murmur64 fmix of (k-mer + hash id) kept
+# against a running 64-bit minimum: two 64-bit multiplies (4 multiply-adds
+# each), three 64-bit xor-shifts (2 each) and the compare-and-keep (3) on
+# the ALU, the add with carry (2) on either pipe
+OPS_PER_HASH = {"fma": 8, "alu": 9, "either": 2}
+# A read word of one shift of SHD: three logic operations, an add and a
+# popcount (no shift: the read can be aligned once for each sub-word
+# shift, and the anchor words then compared as they stand)
+OPS_PER_SHD_WORD = {"alu": 3, "either": 1, "popc": 1}
+# A cell of the striped SW pass.  The values fit int16, so Hopper's fused
+# add-and-max instructions on s16x2 (DPX) take two cells each, and a word
+# of two cells needs 8 of them: min(vh + score, 253); max with e; the
+# running maximum of pre + j; h_main; two for e_new; the lazy-F max(corr -
+# j, h, 0); the column maximum.  The per-column work of a pair is left out.
+OPS_PER_SW_CELL = {"alu": 4}
+# An in-band cell of a fill pass: the score's select, the maxima of e, a,
+# f and h and the two scans' steps on the ALU, the gap and score adds on
+# either pipe; packing the direction and the run length adds 6 ALU
+# instructions and 2 adds
+OPS_PER_FILL_CELL = {"alu": 8, "either": 4}
+OPS_PER_FILL_CELL_EMIT = {"alu": 14, "either": 6}
+
+
+def ops(n, per=None):
+    """Instructions of n units of work, by pipe: `per` a unit (a dict of
+    OPS_PER_*), or n ALU instructions."""
+    return {k: n * v for k, v in (per or {"alu": 1}).items()}
 
 
 def log(*args):
@@ -168,11 +193,14 @@ def nbytes(*tensors):
                if t is not None)
 
 
-def bound(bytes_moved, operations):
+def bound(bytes_moved, instructions):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    integer operations over the integer rate."""
+    the instructions' time, the largest of each pipe's over its lanes and
+    all of them over the issue lanes (instructions: pipe -> count)."""
     t_bytes = bytes_moved / MEM_BYTES_PER_S * 1e3
-    t_ops = operations / INT_OPS_PER_S * 1e3
+    clocks = max([instructions.get(k, 0) / n for k, n in PIPE_LANES.items()]
+                 + [sum(instructions.values()) / ISSUE_LANES])
+    t_ops = clocks / SM_CLOCKS_PER_S * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops
             else (t_ops, "operations"))
 
@@ -308,7 +336,7 @@ def phase1():
                     kernel=lambda: mk.sigs_from_bases(*args),
                     plain=lambda: mk.sigs_from_bases_plain(*args),
                     bound=lambda out: (nbytes(bases, lens, hid, *out),
-                                       hashes * OPS_PER_HASH))
+                                       ops(hashes, OPS_PER_HASH)))
 
     read_lens = np.full(4096, 100)
     read_lens[::97] = rng.integers(0, 128, size=len(read_lens[::97]))
@@ -326,12 +354,12 @@ def phase1():
         # merging F ascending lists of C ids: F*C*log2(F) 64-bit
         # compare-and-selects (2 operations each), then one run-length
         # count and one threshold test per id
-        ops = n * f * c * (2 * int(np.log2(f)) + 2)
+        n_ops = n * f * c * (2 * int(np.log2(f)) + 2)
         return dict(key="vote", name="vote",
                     shape=f"F={f} N={n} C={c} cap={cap}",
                     kernel=lambda: vk.vote_candidates_fnc(cand, 4, cap),
                     plain=lambda: vk.vote_candidates_fnc_plain(cand, 4, cap),
-                    bound=lambda out: (nbytes(cand, *out), ops))
+                    bound=lambda out: (nbytes(cand, *out), ops(n_ops)))
 
     cases.append(vote_case(32, 4096, 16, 8))
     cases.append(vote_case(64, 4096, 16, 8))       # 4F under --undirectional
@@ -358,7 +386,27 @@ def phase1():
         kernel=lambda: sk.shd_best(*shd_args),
         plain=lambda: sk.shd_best_plain(*shd_args),
         bound=lambda out: (nbytes(*planes, tbounds, *out),
-                           2 * shifts_run * wr * OPS_PER_SHD_WORD)))
+                           ops(2 * shifts_run * wr, OPS_PER_SHD_WORD))))
+    # the main path's bounds: [bit0, bit0 + 128] (anchor 228 bases, read
+    # 100), 40 shorter edge pairs, the 300 padded pairs (a generator of its
+    # own: the other cases keep their data)
+    g13 = np.random.default_rng(13)
+    bit0_m = g13.integers(0, 32, size=p)
+    bounds_m = np.stack([bit0_m, bit0_m + 128], axis=1)
+    bounds_m[:40, 1] -= g13.integers(1, 129, size=40)
+    bounds_m[-300:] = -1
+    tbounds_m = torch.from_numpy(bounds_m.astype(np.int32)).to(dev)
+    shd_args_m = planes + (tbounds_m, n_shifts, wa, wr)
+    run_m = int(np.where(bounds_m[:, 0] >= 0,
+                         bounds_m[:, 1] - bounds_m[:, 0] + 1, 0).sum())
+    cases.append(dict(
+        key="shd_best", name="shd_best",
+        shape=f"P={p} wr={wr} wa={wa} n_shifts={n_shifts}, the main path's "
+              "bounds [bit0, bit0 + 128]",
+        kernel=lambda: sk.shd_best(*shd_args_m),
+        plain=lambda: sk.shd_best_plain(*shd_args_m),
+        bound=lambda out: (nbytes(*planes, tbounds_m, *out),
+                           ops(2 * run_m * wr, OPS_PER_SHD_WORD))))
 
     # the two kernels without a caller on the main path, at its shapes
     n, npos, f = 4096, 128 - k + 1, 16
@@ -378,7 +426,7 @@ def phase1():
         kernel=lambda: mk.sig_min_murmur(*sig_args),
         plain=lambda: mk.sig_min_murmur_plain(*sig_args),
         bound=lambda out: (nbytes(kmers) // 2 + nbytes(klens, hid, *out),
-                           n_valid(read_lens, 128) * f * OPS_PER_HASH)))
+                           ops(n_valid(read_lens, 128) * f, OPS_PER_HASH))))
     ham_args = planes + (n_shifts, wa, wr)
     cases.append(dict(
         key="shd_hamming_matrix", name="shd_hamming_matrix",
@@ -386,9 +434,10 @@ def phase1():
         kernel=lambda: sk.shd_hamming_matrix(*ham_args),
         plain=lambda: sk.shd_hamming_matrix_plain(*ham_args),
         bound=lambda out: (nbytes(*planes, *out),
-                           2 * p * n_shifts * wr * OPS_PER_SHD_WORD)))
+                           ops(2 * p * n_shifts * wr, OPS_PER_SHD_WORD))))
 
     cases.extend(step2_cases(rng, dev))
+    cases.append(shd_stage_case(dev))
     records = {}
     for case in cases:
         name, shape = case["name"], case["shape"]
@@ -436,9 +485,11 @@ def phase1():
             rec["other_cases"].append(times)
 
     # the kernels that superseded the two, on the card; these launches
-    # are the two kernels' count in the kernels line (they have no caller
-    # on the main path, as in the JAX package)
+    # are the three kernels' count in the kernels line (sig_min_murmur and
+    # shd_hamming_matrix have no caller, as in the JAX package; shd_best
+    # none on the main path, whose SHD stage is the fused entry)
     mk.sig_min_murmur.launches = sk.shd_hamming_matrix.launches = 0
+    sk.shd_best.launches = 0
     want = mk.sigs_from_bases(torch.from_numpy(bases_np).to(dev), klens, k,
                               hid, "fwd")
     if not torch.equal(mk.sig_min_murmur(*sig_args), want):
@@ -461,7 +512,8 @@ def phase1():
         "lows) == sigs_from_bases('fwd'); min over [min_shift, max_shift] "
         "of shd_hamming_matrix, earliest shift on ties == shd_best")
     for key, fn in (("sig_min_murmur", mk.sig_min_murmur),
-                    ("shd_hamming_matrix", sk.shd_hamming_matrix)):
+                    ("shd_hamming_matrix", sk.shd_hamming_matrix),
+                    ("shd_best", sk.shd_best)):
         records[key]["launches"] = fn.launches
     # the single-pass fill's and the unfused striped pass's launches so
     # far, all of this phase
@@ -470,6 +522,69 @@ def phase1():
     records["fill_pass"]["own"] = fill_pass.launches
     records["sw_pass"]["own"] = pass_batched.launches
     return records
+
+
+def shd_stage_case(dev):
+    """The fused SHD stage (ops/shd.py::shd_pairs_best) at the flagship's
+    shapes: 4,096 planted reads (the flagship recipe, 100 bases in rows of
+    128) on a random 1 Mbp chromosome, 4 pairs a read (a window holding
+    the read and 3 anywhere), window 128, 3N; the last 300 pairs invalid
+    (a compacted batch's padding).  Held against the plain composition on
+    the card (the torch operations around the shd_best kernel) and, once
+    here, against the plain composition on the CPU."""
+    from hashreadmapper_tpu_torch.ops import shd
+    from hashreadmapper_tpu_torch.ops.shd_kernel import pack_genome_planes
+    rng = np.random.default_rng(14)
+    g_len, n, kb, ws = 1_000_000, 4096, 4, 128
+    chrom = rng.integers(0, 4, size=g_len, dtype=np.int8)
+    reads, starts, _ = planted_reads(rng, chrom, n, READ_LEN)
+    rows = np.zeros((n, 128), np.int8)
+    rows[:, :READ_LEN] = reads
+    p = n * kb
+    ridx = np.repeat(np.arange(n), kb)
+    pos = rng.integers(0, g_len - ws, size=p)
+    own = np.arange(p) % kb == 0
+    pos[own] = np.clip(starts - rng.integers(0, ws - READ_LEN + 1, size=n),
+                       0, g_len - ws)
+    host = dict(bases=torch.from_numpy(rows),
+                lens=torch.full((n,), READ_LEN, dtype=torch.int32),
+                ridx=torch.from_numpy(ridx))
+    loc = shd.extended_window_location(
+        torch.from_numpy(pos), torch.full((p,), g_len),
+        host["lens"].to(torch.int64)[host["ridx"]], ws)
+    g_hi, g_lo = pack_genome_planes(torch.from_numpy(chrom))
+    host.update(g_hi=g_hi, g_lo=g_lo, gstart=loc.start, alen=loc.length,
+                aleft=loc.left, valid=torch.arange(p) < p - 300)
+    card = {k: v.to(dev) for k, v in host.items()}
+    params = shd.ShdParams(ws, ws + 128, 128, 0.05)
+    args = lambda d: (d["bases"], d["lens"], d["ridx"], d["g_hi"], d["g_lo"],
+                      d["gstart"], d["alen"], d["aleft"], d["valid"], params)
+    got = shd.shd_pairs_best(*args(card), three_n=True)
+    want = shd.shd_pairs_best_plain(*args(host), three_n=True)
+    if max_abs_err(tuple(x.cpu() for x in got), want) != 0:
+        raise AssertionError("shd_pairs_best on the card != its plain "
+                             "composition on the CPU")
+    n_shifts = ws + 32
+    bit0 = loc.start & 31
+    hi = torch.minimum(bit0 + loc.length - READ_LEN,
+                       torch.tensor(n_shifts - 1))
+    shifts_run = int((hi - bit0 + 1).clamp(min=0).sum())
+    wr = 4
+    nw = (n_shifts + 31) // 32 + wr
+    words = ((loc.start.clamp(min=0) >> 5)[:, None] + torch.arange(nw)
+             ).clamp(max=g_hi.shape[0] - 1)
+    moved = (nbytes(card["bases"], card["lens"], card["ridx"], card["gstart"],
+                    card["alen"], card["aleft"], card["valid"])
+             + 8 * int(torch.unique(words).numel()))
+    mapped = int((want.orientation != shd.NONE).sum())
+    return dict(
+        key="shd_pairs_best", name="shd_pairs_best",
+        shape=f"P={p} pairs of {n} planted reads (L=128, read_len "
+              f"{READ_LEN}), window {ws}, 3N; {mapped} pairs not NONE",
+        kernel=lambda: shd.shd_pairs_best(*args(card), three_n=True),
+        plain=lambda: shd.shd_pairs_best_plain(*args(card), three_n=True),
+        bound=lambda out: (moved + nbytes(*out),
+                           ops(2 * shifts_run * wr, OPS_PER_SHD_WORD)))
 
 
 def indel_pairs(rng, n, lq=128, lr=128):
@@ -579,7 +694,7 @@ def fused_sw_cases(dev, label, pairs, lq):
              plain_reps=(2, 1),
              bound=lambda out: (nbytes(read_t, ref_t, rl, fl, ml)
                                 + 4 * p * len(fwd_rows),
-                                cells_f * OPS_PER_SW_CELL)),
+                                ops(cells_f, OPS_PER_SW_CELL))),
         dict(key="sw_reverse", name="sw_reverse", shape=shape,
              kernel=lambda: swk.sw_reverse(read_t, ref_t, s1, re, qe, lq,
                                            out_r),
@@ -588,7 +703,7 @@ def fused_sw_cases(dev, label, pairs, lq):
              plain_reps=(2, 1),
              bound=lambda out: (nbytes(read_t, ref_t, s1, re, qe)
                                 + 4 * p * len(rev_rows),
-                                cells_r * OPS_PER_SW_CELL))]
+                                ops(cells_r, OPS_PER_SW_CELL)))]
 
 
 def step2_cases(rng, dev):
@@ -625,7 +740,7 @@ def step2_cases(rng, dev):
                   kernel=lambda a=a: swk.pass_batched(*a),
                   plain=lambda a=a: swk.pass_batched_plain(*a),
                   bound=lambda out, a=a, n=cells[name.split(",")[0]]: (
-                      nbytes(*a[:6], *out), n * OPS_PER_SW_CELL))
+                      nbytes(*a[:6], *out), ops(n, OPS_PER_SW_CELL)))
              for name, a in (("forward, max_column", fwd),
                              ("reverse, terminate=score1", rev))]
     cases += fused_sw_cases(dev, "indel pairs of 25-40 bases",
@@ -653,7 +768,7 @@ def step2_cases(rng, dev):
                                                                 pm),
             view=(lambda out: out.T) if pair_major else (lambda out: out),
             library=lambda padded=padded: torch.gather(padded, 0, src),
-            bound=lambda out, x=x: (nbytes(x, begin, *out), lq * p)))
+            bound=lambda out, x=x: (nbytes(x, begin, *out), ops(lq * p))))
     s10 = swdev.ssw_score_packed_t(read_t, rl, ref_t, fl,
                                    (rl // 2).clamp(min=15), lq)
     qb, qe, rb, re = s10[6], s10[2], s10[5], s10[1]
@@ -668,9 +783,9 @@ def step2_cases(rng, dev):
     live = done == 0
     n_live = int(live.sum())
     # the work of the pairs that are not done: in-band cells of rows i < m,
-    # band [max(0, i - bw), min(r - 1, i + bw)], about 12 operations a
-    # cell (score, three max, the two scans' steps), 20 when it also packs
-    # the direction and the run length
+    # band [max(0, i - bw), min(r - 1, i + bw)], OPS_PER_FILL_CELL a cell,
+    # OPS_PER_FILL_CELL_EMIT when it also packs the direction and the run
+    # length
     i = torch.arange(lq, device=dev)[None, :]
 
     def cells_of(width, mask):
@@ -690,7 +805,8 @@ def step2_cases(rng, dev):
     def fill_bound(out, emit):
         pair_bytes = 4 * (lq + lq) + (2 * lq * lq if emit else 0)
         return (nbytes(m, r, bw, done, out[0]) + n_live * pair_bytes,
-                band_cells * (20 if emit else 12))
+                ops(band_cells, OPS_PER_FILL_CELL_EMIT if emit
+                    else OPS_PER_FILL_CELL))
     for emit in (False, True):
         args = (sub_q, sub_r, m, r, bw, done, lq, emit)
         cases.append(dict(key="fill_pass", name="fill_pass",
@@ -710,19 +826,22 @@ def step2_cases(rng, dev):
         """The same work whatever implements it: codes of the pairs that
         run and every scalar read once, entries, status and widths written
         once; the in-band cells of every pass the doubling rule requires
-        (widths bw0, 2 bw0, ... up to this run's final width), 12
-        operations a cell and 20 in the last, which also gives the
-        directions.  No direction array: no caller needs it."""
+        (widths bw0, 2 bw0, ... up to this run's final width),
+        OPS_PER_FILL_CELL a cell and OPS_PER_FILL_CELL_EMIT in the last,
+        which also gives the directions.  No direction array: no caller
+        needs it."""
         ents, status, bw_f = out[:3]
         n_run = int(run.sum())
         moved = (nbytes(m, r, s10[0], ents, status, bw_f) + p
                  + n_run * (lq + lq))
-        ops, width = 0, bw0.clone()
+        plain, emit, width = 0, 0, bw0.clone()
         for _ in range(bk.n_band_passes(lq, lq) + 1):
-            ops += 12 * cells_of(width, run & (width < bw_f))
-            ops += 20 * cells_of(width, run & (width == bw_f))
+            plain += cells_of(width, run & (width < bw_f))
+            emit += cells_of(width, run & (width == bw_f))
             width = width * 2
-        return moved, ops
+        return moved, {k: ops(plain, OPS_PER_FILL_CELL).get(k, 0)
+                       + ops(emit, OPS_PER_FILL_CELL_EMIT).get(k, 0)
+                       for k in ("alu", "either")}
 
     def tb_note(kw):
         def note(out):
@@ -785,15 +904,16 @@ def kernel_wrappers():
     of the kernels JSON.  The fill's launch on that path is the fused
     traceback (all passes and the walk in one), the striped pass's the
     forward and the reverse score pass (the column pass with what stands
-    around it in one launch each)."""
+    around it in one launch each).  The SHD stage is its fused entry,
+    shd_kernel.shd_pairs_best: the direct shd_best has no caller there."""
     from hashreadmapper_tpu_torch.ops.bandtb_kernel import shift_sub, traceback
     from hashreadmapper_tpu_torch.ops.minhash_kernel import sigs_from_bases
-    from hashreadmapper_tpu_torch.ops.shd_kernel import shd_best
+    from hashreadmapper_tpu_torch.ops.shd_kernel import shd_pairs_best
     from hashreadmapper_tpu_torch.ops.swdev_kernel import (sw_forward,
                                                            sw_reverse)
     from hashreadmapper_tpu_torch.ops.vote_kernel import vote_candidates_fnc
     return {"minhash": sigs_from_bases, "vote": vote_candidates_fnc,
-            "shd_best": shd_best, "sw_forward": sw_forward,
+            "shd_pairs_best": shd_pairs_best, "sw_forward": sw_forward,
             "sw_reverse": sw_reverse, "shift_sub": shift_sub,
             "traceback": traceback}
 
@@ -803,18 +923,26 @@ def counted(label, fn):
     and read just after: (result, seconds, launches).  Fails when a kernel
     of the path was never launched, when the path went through the
     unfused striped pass (which builds the striped read tensor and the
-    per-column maxima in device memory), or when jax or the JAX package
-    got imported."""
+    per-column maxima in device memory) or the direct shd_best kernel
+    (the SHD stage as torch operations around it), or when jax or the JAX
+    package got imported."""
+    from hashreadmapper_tpu_torch.ops.shd_kernel import shd_best
     from hashreadmapper_tpu_torch.ops.swdev_kernel import pass_batched
     kernels = kernel_wrappers()
     for k in kernels.values():
         k.launches = 0
     unfused = pass_batched.launches
+    shd_best.launches = 0
     t0 = time.perf_counter()
     res = fn()
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
-    log(f"{label} kernel launches: {launches}")
+    log(f"{label} kernel launches: {launches}; the direct shd_best: "
+        f"{shd_best.launches}")
+    if shd_best.launches != 0:
+        raise AssertionError(f"{label}: the SHD stage went through the "
+                             f"direct shd_best ({shd_best.launches} "
+                             "launches), not the fused entry")
     if launches["shift_sub"] != 2 * launches["traceback"]:
         raise AssertionError(f"{label}: a traceback is two shift_sub "
                              f"launches and one of its own: {launches}")
@@ -827,6 +955,7 @@ def counted(label, fn):
     if min(launches.values()) <= 0:
         raise AssertionError(f"{label}: a kernel of the path never "
                              f"launched: {launches}")
+    launches["shd_best_direct"] = shd_best.launches
     check_no_jax()
     return res, wall, launches
 
@@ -1144,6 +1273,8 @@ def phase5(tmp, res, chrom, mappers):
     padded = np.zeros((N_READS, 128), np.int8)
     padded[:, :READ_LEN] = reads
     per_batch = launches_per_batch("phase5", res_u["mapper"], padded, lens)
+    per_batch["every device launch"] = profiled_launches(
+        "phase5", res_u["mapper"], padded, lens)
     # card == CPU on the directional mappers' indexes (the 2F tables are
     # the same), switched to the undirectional step
     for m in mappers.values():
@@ -1286,7 +1417,11 @@ def main():
             "fill_pass": (src + "bandtb.cu", ref + "bandtb.py:355"),
             # the same pallas_call with the two scans around it
             # (bandtb.py:516-528, :548-581)
-            "traceback": (src + "bandtb.cu", ref + "bandtb.py:355")}
+            "traceback": (src + "bandtb.cu", ref + "bandtb.py:355"),
+            # the same pallas_call with what shd.py builds around it:
+            # pack_read_planes (:330), the per-pair gathers and
+            # shd_pairs_packed_planes (:364)
+            "shd_pairs_best": (src + "shd.cu", ref + "shd_pallas.py:217")}
     from hashreadmapper_tpu_torch.ops.bandtb_kernel import fill_pass
     from hashreadmapper_tpu_torch.ops.swdev_kernel import pass_batched
     # the fill's launch on the main path is the fused traceback (one a
@@ -1324,20 +1459,29 @@ def main():
                 launches_per_batch=total(per_batch),
                 launches_per_batch_undirectional=total(per_batch_und))
         else:
-            # no caller on any path of the system (as in the JAX package):
-            # counted over phase 1's cross-checks against the kernels that
-            # superseded it
-            entry.update(launches=rec["launches"],
-                         path="kernel phase cross-check (no caller on the "
-                              "main path)")
+            # no caller on the main path: counted over phase 1's
+            # cross-checks against the kernels that superseded it
+            path = "kernel phase cross-check (no caller on the main path)"
+            if name == "shd_best":
+                entry["launches_main_path"] = [
+                    d["shd_best_direct"]
+                    for d in (launches, launches_und, launches_par)]
+                path += ("; the main path's SHD stage is hrm_shd_pairs_best, "
+                         "which runs the pair loop (warp_best) it shares "
+                         "with hrm_shd_best on planes it builds itself; "
+                         "hrm_shd_best's own launches in the three CLI runs "
+                         "are launches_main_path")
+            entry.update(launches=rec["launches"], path=path)
         entry.update({k: rec[k] for k in (
             "max_abs_err", "ms", "call_ms", "host_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "library_call_ms", "library_host_ms",
             "shape", "other_cases")})
         kernels.append(entry)
-    print(json.dumps({"kernels": kernels,
-                      "device_launches_per_batch":
-                          per_batch["every device launch"]}))
+    print(json.dumps({
+        "kernels": kernels,
+        "device_launches_per_batch": per_batch["every device launch"],
+        "device_launches_per_batch_undirectional":
+            per_batch_und["every device launch"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

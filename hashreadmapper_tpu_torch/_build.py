@@ -17,8 +17,9 @@ builds each produce a whole file and no process loads a partial one.
 native.py binds it.
 
 Every entry point takes device pointers and the CUDA stream as c_void_p,
-sizes as c_int, launches on that stream without synchronising, and returns
-cudaGetLastError(); launch() raises when that is not cudaSuccess.
+sizes as c_int (a float32 parameter as c_float), launches on that stream
+without synchronising, and returns cudaGetLastError(); launch() raises
+when that is not cudaSuccess.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # entry point -> argtypes (pointers and the stream as c_void_p, ints c_int)
 _SIGNATURES = {
     # bases, lengths, hash_ids, out, n, maxlen, k, f, mode, stream
@@ -77,6 +79,9 @@ _SIGNATURES = {
     "hrm_sig_min_murmur": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # a_hi, a_lo, r_hi, r_lo, mask, out, p, wa, wr, n_shifts, stream
     "hrm_shd_hamming_matrix": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # bases, read_len, ridx, g_hi, g_lo, gstart, alen, aleft, valid, ham,
+    # shift, ori, p, l, g_words, n_shifts, max_pct, mode, stream
+    "hrm_shd_pairs_best": [_P] * 12 + [_I] * 4 + [_F, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -7,6 +7,12 @@ in both orientations; strictly smaller scores win, ties keep the forward
 orientation and the earlier shift; orientation is NONE above
 trunc(float32(read_len) * float32(max_hamming_percent)) or when the read
 is longer than the anchor.
+
+shd_pairs_best is the coarse mapper's whole SHD stage: for CUDA tensors
+one launch of csrc/shd.cu through shd_kernel.shd_pairs_best (read planes,
+anchor gather and collapses, best shift, finish), for CPU tensors its
+plain version, the composition of pack_read_planes, the per-pair gathers
+and shd_pairs_packed_planes.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import encode
+from . import encode, shd_kernel
 from .shd_kernel import (collapse_planes_ct, collapse_planes_ga,
                          pack_bitplanes, shd_best)
 
@@ -146,3 +152,43 @@ def shd_pairs_packed_planes(genome_hi, genome_lo, anchor_global_start,
                          best4[:, 2], best4[:, 3] - b0], dim=1)
     return finalize_shd_from_best(best4, anchor_length, anchor_left,
                                   read_len, pair_valid, params)
+
+
+def shd_pairs_best_plain(read_bases, read_len, ridx, genome_hi, genome_lo,
+                         anchor_global_start, anchor_length, anchor_left,
+                         pair_valid, params: ShdParams, three_n: bool = False,
+                         undirectional: bool = False) -> ShdResult:
+    """Plain version of shd_pairs_best: the read planes packed per read,
+    gathered per pair, then shd_pairs_packed_planes."""
+    hi0, lo0, hi1, lo1, mask = pack_read_planes(read_bases, read_len,
+                                                three_n, undirectional)
+    return shd_pairs_packed_planes(
+        genome_hi, genome_lo, anchor_global_start, anchor_length,
+        anchor_left, hi0[ridx], lo0[ridx], hi1[ridx], lo1[ridx], mask[ridx],
+        read_len.to(torch.int64)[ridx], pair_valid, params, three_n=three_n,
+        undirectional=undirectional)
+
+
+def shd_pairs_best(read_bases, read_len, ridx, genome_hi, genome_lo,
+                   anchor_global_start, anchor_length, anchor_left,
+                   pair_valid, params: ShdParams, three_n: bool = False,
+                   undirectional: bool = False) -> ShdResult:
+    """SHD of P (read, anchor) pairs from the reads themselves: read
+    ridx[p] of read_bases [B, L] int8 (lengths read_len [B]) against the
+    anchor at anchor_global_start[p] of the packed genome planes, collapsed
+    per orientation as pack_read_planes and shd_pairs_packed_planes
+    collapse (3N, 3N undirectional or parity); the ShdResult of
+    shd_pairs_packed_planes.  CUDA tensors launch
+    shd_kernel.shd_pairs_best (L <= 32 * shd_kernel.WR_MAX), CPU tensors take
+    shd_pairs_best_plain."""
+    if read_bases.device.type == "cpu":
+        return shd_pairs_best_plain(
+            read_bases, read_len, ridx, genome_hi, genome_lo,
+            anchor_global_start, anchor_length, anchor_left, pair_valid,
+            params, three_n, undirectional)
+    mode = (shd_kernel.THREE_N_UNDIRECTIONAL if three_n and undirectional
+            else shd_kernel.THREE_N if three_n else shd_kernel.PARITY)
+    return ShdResult(*shd_kernel.shd_pairs_best(
+        read_bases, read_len, ridx, genome_hi, genome_lo,
+        anchor_global_start, anchor_length, anchor_left, pair_valid,
+        params.window_size + 32, params.max_hamming_percent, mode))

@@ -6,7 +6,10 @@ packed 32 positions per int32 word, bit j of word w = position 32*w + j;
 a mismatch is a set bit of (a_hi ^ r_hi) | (a_lo ^ r_lo).  shd_best (the
 best shift per orientation) and shd_hamming_matrix (every shift's score)
 launch the kernels of csrc/shd.cu for CUDA tensors and run their *_plain
-versions for CPU tensors.
+versions for CPU tensors.  shd_pairs_best binds the third entry of
+csrc/shd.cu, the coarse mapper's whole SHD stage in one launch; its
+plain version, and the dispatch between the two, are
+ops/shd.py::shd_pairs_best's.
 """
 
 from __future__ import annotations
@@ -19,7 +22,9 @@ from .. import _build
 from .u64 import MASK32
 
 BIG = 0x3FFFFFFF
-WR_MAX = 16              # read words the CUDA kernel keeps in registers
+WR_MAX = 16              # read words the CUDA kernels keep in registers
+# the kernels' argmin key is (hamming << 16 | shift): shifts below 2**16
+MAX_SHIFTS = 65536
 
 
 def as_i32(v: torch.Tensor) -> torch.Tensor:
@@ -162,6 +167,9 @@ def shd_best(anchor_hi, anchor_lo, read_hi_both, read_lo_both, read_mask,
            shift_bounds, n_shifts, wa, wr)
     if wr > WR_MAX:
         raise ValueError(f"shd_best: wr={wr} exceeds the kernel's {WR_MAX}")
+    if n_shifts > MAX_SHIFTS:
+        raise ValueError(f"shd_best: n_shifts={n_shifts} exceeds the "
+                         f"kernel's {MAX_SHIFTS}")
     args = [t.to(torch.int32).contiguous()
             for t in (anchor_hi, anchor_lo, read_hi_both, read_lo_both,
                       read_mask, shift_bounds)]
@@ -196,14 +204,17 @@ def shd_hamming_matrix(anchor_hi, anchor_lo, read_hi_both, read_lo_both,
     r_hi[p, o] | (a_lo[p, o] >> s) ^ r_lo[p, o]) & mask[p]), the anchor
     shifted across word boundaries.  No bounds and no argmin.  Anchors
     [P, 2, wa] with wa >= ceil(n_shifts / 32) + wr, reads [P, 2, wr], mask
-    [P, wr], int32 words (any P).  CUDA tensors launch csrc/shd.cu, CPU
-    tensors take the plain version."""
+    [P, wr], int32 words (any P; wr <= WR_MAX on the card).  CUDA tensors
+    launch csrc/shd.cu, CPU tensors take the plain version."""
     if anchor_hi.device.type == "cpu":
         return shd_hamming_matrix_plain(anchor_hi, anchor_lo, read_hi_both,
                                         read_lo_both, read_mask, n_shifts,
                                         wa, wr)
     _check(anchor_hi, anchor_lo, read_hi_both, read_lo_both, read_mask, None,
            n_shifts, wa, wr, "shd_hamming_matrix")
+    if wr > WR_MAX:
+        raise ValueError(f"shd_hamming_matrix: wr={wr} exceeds the kernel's "
+                         f"{WR_MAX}")
     args = [t.to(torch.int32).contiguous()
             for t in (anchor_hi, anchor_lo, read_hi_both, read_lo_both,
                       read_mask)]
@@ -218,3 +229,51 @@ def shd_hamming_matrix(anchor_hi, anchor_lo, read_hi_both, read_lo_both,
 
 
 shd_hamming_matrix.launches = 0
+
+# collapse modes of shd_pairs_best, as csrc/shd.cu numbers them
+PARITY, THREE_N, THREE_N_UNDIRECTIONAL = 0, 1, 2
+
+
+def shd_pairs_best(read_bases, read_len, ridx, genome_hi, genome_lo,
+                   anchor_global_start, anchor_length, anchor_left,
+                   pair_valid, n_shifts: int, max_hamming_percent: float,
+                   mode: int):
+    """The coarse mapper's SHD stage in one launch of hrm_shd_pairs_best
+    (CUDA tensors only; ops/shd.py::shd_pairs_best dispatches and holds
+    the plain version): read ridx[p] of read_bases [B, L] int8 against
+    the anchor at anchor_global_start[p] of the packed genome planes,
+    collapsed per `mode`, shifts below n_shifts.  Returns (hamming, shift,
+    orientation) [P] int32, int32, int8."""
+    b, l = read_bases.shape
+    p = ridx.shape[0]
+    if (read_len.shape != (b,) or genome_lo.shape != genome_hi.shape
+            or any(t.shape != (p,) for t in (
+                anchor_global_start, anchor_length, anchor_left,
+                pair_valid))):
+        raise ValueError("shd_pairs_best: expected read_bases [B, L], "
+                         "read_len [B], ridx and the pair vectors [P]")
+    if not 1 <= (l + 31) // 32 <= WR_MAX or n_shifts > MAX_SHIFTS:
+        raise ValueError(f"shd_pairs_best: L={l} (at most {32 * WR_MAX}) or "
+                         f"window_size + 32 = {n_shifts} (at most "
+                         f"{MAX_SHIFTS}) outside the kernel's range")
+    if genome_hi.shape[0] < 1:
+        raise ValueError("shd_pairs_best: empty genome planes")
+    ins = [read_bases.to(torch.int8), read_len.to(torch.int32),
+           ridx.to(torch.int64), genome_hi.to(torch.int32),
+           genome_lo.to(torch.int32), anchor_global_start.to(torch.int64),
+           anchor_length.to(torch.int64), anchor_left.to(torch.int64),
+           pair_valid.to(torch.bool)]
+    ins = [t.contiguous() for t in ins]
+    dev = ins[0].device
+    outs = [torch.empty(p, dtype=torch.int32, device=dev),
+            torch.empty(p, dtype=torch.int32, device=dev),
+            torch.empty(p, dtype=torch.int8, device=dev)]
+    _build.check_cuda("shd_pairs_best", *ins, *outs)
+    _build.launch("hrm_shd_pairs_best", *[t.data_ptr() for t in ins + outs],
+                  p, l, genome_hi.shape[0], n_shifts,
+                  float(max_hamming_percent), mode, _build.stream(outs[0]))
+    shd_pairs_best.launches += 1
+    return tuple(outs)
+
+
+shd_pairs_best.launches = 0

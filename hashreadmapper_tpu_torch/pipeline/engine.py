@@ -175,13 +175,12 @@ def coarse_pairs_best(ids, read_bases, read_len, opts: ProgramOptions,
         max_read_len=read_bases.shape[1],
         max_hamming_percent=opts.max_hamming_percent)
 
+    gstart = chrom_offset[chrom] + loc.start
+
     def eval_pairs(undirectional):
-        hi0, lo0, hi1, lo1, pmask = shd.pack_read_planes(
-            read_bases, read_len, opts.three_n_seeding, undirectional)
-        return shd.shd_pairs_packed_planes(
-            genome_hi, genome_lo, chrom_offset[chrom] + loc.start,
-            loc.length, loc.left, hi0[ridx], lo0[ridx], hi1[ridx],
-            lo1[ridx], pmask[ridx], rl_rep, sel_valid, params,
+        return shd.shd_pairs_best(
+            read_bases, read_len, ridx, genome_hi, genome_lo, gstart,
+            loc.length, loc.left, sel_valid, params,
             three_n=opts.three_n_seeding, undirectional=undirectional)
 
     res = eval_pairs(False)

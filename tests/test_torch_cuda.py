@@ -15,10 +15,13 @@ import torch
 from hashreadmapper_tpu_torch.ops import bandtb
 from hashreadmapper_tpu_torch.ops import bandtb_kernel as bk
 from hashreadmapper_tpu_torch.ops import minhash_kernel as mk
+from hashreadmapper_tpu_torch.ops import shd
 from hashreadmapper_tpu_torch.ops import shd_kernel as sk
 from hashreadmapper_tpu_torch.ops import swdev
 from hashreadmapper_tpu_torch.ops import swdev_kernel as swk
 from hashreadmapper_tpu_torch.ops import vote_kernel as vk
+
+from torch_helpers import shd_pairs_case
 
 pytestmark = pytest.mark.cuda
 
@@ -203,6 +206,107 @@ def test_hamming_matrix_kernel_row_min_equals_shd_best_kernel(dev):
     got = torch.stack([best[:, 0], shift[:, 0], best[:, 1], shift[:, 1]],
                       dim=1).to(torch.int32)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("p", [1, 31, 33])
+@pytest.mark.parametrize("wr", list(range(5, 17)))
+def test_shd_kernels_every_width(dev, wr, p):
+    """Every register width of the two warp kernels above the main path's
+    wr 4, P of one warp, one short of and one past a 32-pair multiple;
+    full-range words, empty and reversed bounds, tied shifts, zero masks."""
+    rng = np.random.default_rng(100 * wr + p)
+    n_shifts = 160 if wr % 2 else 70
+    wa = (n_shifts + 31) // 32 + wr + (wr % 3)
+    r32 = lambda *s: torch.from_numpy(rng.integers(
+        -2**31, 2**31, size=s, dtype=np.int64).astype(np.int32)).to(dev)
+    a_hi, a_lo = r32(p, 2, wa), r32(p, 2, wa)
+    a_hi[-1:] = a_hi[-1:, :, :1]                             # tied shifts
+    mask = r32(p, wr)
+    mask[:1] = 0
+    lo = rng.integers(-3, 40, size=p)
+    bounds = np.stack([lo, lo + rng.integers(-3, n_shifts + 40, size=p)],
+                      axis=1)
+    if p > 2:
+        bounds[1:3] = [[-1, -1], [50, 20]]                   # empty ranges
+    args = (a_hi, a_lo, r32(p, 2, wr), r32(p, 2, wr), mask,
+            torch.from_numpy(bounds.astype(np.int32)).to(dev), n_shifts,
+            wa, wr)
+    got = _launched_once(sk.shd_best, lambda: sk.shd_best(*args))
+    assert torch.equal(got, sk.shd_best_plain(*args))
+    m_args = args[:5] + args[6:]
+    got = _launched_once(sk.shd_hamming_matrix,
+                         lambda: sk.shd_hamming_matrix(*m_args))
+    assert torch.equal(got, sk.shd_hamming_matrix_plain(*m_args))
+
+
+def test_shd_best_kernel_on_the_main_path_bounds(dev):
+    """The coarse mapper's bounds: [bit0, bit0 + 128] at 160 shifts
+    (wa 10, wr 4), a few shorter, 300 padded pairs."""
+    rng = np.random.default_rng(31)
+    p, wr, wa, n_shifts = 4096, 4, 10, 160
+    r32 = lambda *s: torch.from_numpy(rng.integers(
+        -2**31, 2**31, size=s, dtype=np.int64).astype(np.int32)).to(dev)
+    bit0 = rng.integers(0, 32, size=p)
+    bounds = np.stack([bit0, bit0 + 128], axis=1)
+    bounds[:40, 1] -= rng.integers(1, 129, size=40)
+    bounds[-300:] = -1
+    args = (r32(p, 2, wa), r32(p, 2, wa), r32(p, 2, wr), r32(p, 2, wr),
+            r32(p, wr), torch.from_numpy(bounds.astype(np.int32)).to(dev),
+            n_shifts, wa, wr)
+    got = _launched_once(sk.shd_best, lambda: sk.shd_best(*args))
+    assert torch.equal(got, sk.shd_best_plain(*args))
+
+
+@pytest.mark.parametrize("mode", ["threeN", "parity", "undirectional"])
+@pytest.mark.parametrize("shape", [
+    dict(), dict(width=128, n_reads=64, p=256, ws=128, max_pct=0.05),
+    dict(width=100, ws=96, p=97), dict(width=300, ws=200, p=65)],
+    ids=["w40", "flagship", "w100", "w300"])
+def test_shd_pairs_best_kernel_equals_plain(dev, mode, shape):
+    """The fused SHD stage (one launch) == its plain composition on the
+    card and on the CPU, on torch_helpers.shd_pairs_case's edge cases."""
+    c = shd_pairs_case(23, mode, **shape)
+    width = c["reads"].shape[1]
+    g_hi, g_lo = sk.pack_genome_planes(torch.from_numpy(c["genome"]))
+    params = shd.ShdParams(c["ws"], c["ws"] + width, width, c["max_pct"])
+    flags = dict(three_n=mode != "parity",
+                 undirectional=mode == "undirectional")
+    host = [torch.from_numpy(np.asarray(c[k])) for k in
+            ("reads", "read_len", "ridx")] + [g_hi, g_lo] + [
+        torch.from_numpy(np.asarray(c[k])) for k in
+        ("gstart", "alen", "aleft", "valid")]
+    card = [t.to(dev) for t in host]
+    got = _launched_once(sk.shd_pairs_best, lambda: shd.shd_pairs_best(
+        *card, params, **flags))
+    for want in (shd.shd_pairs_best_plain(*card, params, **flags),
+                 shd.shd_pairs_best_plain(*host, params, **flags)):
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g.cpu(), w.cpu())
+    assert (got.orientation != shd.NONE).sum() > len(c["ridx"]) // 3
+
+
+def test_shd_wrappers_reject_what_the_kernels_do_not_take(dev):
+    x = torch.zeros((4, 2, 2060), dtype=torch.int32, device=dev)
+    b = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="n_shifts=65537"):
+        sk.shd_best(x, x, x[:, :, :2], x[:, :, :2], x[:, 0, :2], b, 65537,
+                    2060, 2)
+    x = x[:, :, :40].contiguous()
+    with pytest.raises(ValueError, match="wr=17"):
+        sk.shd_hamming_matrix(x, x, x[:, :, :17], x[:, :, :17],
+                              x[:, 0, :17], 32, 40, 17)
+    z64 = torch.zeros(4, dtype=torch.int64, device=dev)
+    g = torch.zeros(8, dtype=torch.int32, device=dev)
+    args = (torch.zeros(4, dtype=torch.int32, device=dev), z64, g, g, z64,
+            z64, z64, torch.ones(4, dtype=torch.bool, device=dev))
+    with pytest.raises(ValueError, match="L=513"):
+        shd.shd_pairs_best(torch.zeros((4, 513), dtype=torch.int8,
+                                       device=dev), *args,
+                           shd.ShdParams(128, 641, 513, 0.05))
+    with pytest.raises(ValueError, match="65536"):
+        shd.shd_pairs_best(torch.zeros((4, 100), dtype=torch.int8,
+                                       device=dev), *args,
+                           shd.ShdParams(65536, 65636, 100, 0.05))
 
 
 def _four_strand_case(seed=5, g_len=60_000, n_per=64, read_len=80,

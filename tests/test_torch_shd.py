@@ -1,5 +1,6 @@
-"""Port parity: bit-plane packing and SHD (plain PyTorch on the CPU)
-against the JAX package (Pallas shd_best in interpret mode), exact."""
+"""Port parity: bit-plane packing, SHD and the coarse mapper's SHD stage
+(plain PyTorch on the CPU) against the JAX package (Pallas shd_best in
+interpret mode), exact."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -9,9 +10,12 @@ import torch
 from hashreadmapper_tpu.ops import shd as jshd
 from hashreadmapper_tpu.ops import shd_pallas
 from hashreadmapper_tpu_torch.ops import shd
+from hashreadmapper_tpu_torch.ops import shd_kernel as sk
 from hashreadmapper_tpu_torch.ops.shd_kernel import (
     BIG, pack_bitplanes, pack_genome_planes, shd_best, shd_best_plain,
     shd_hamming_matrix, shd_hamming_matrix_plain)
+
+from torch_helpers import shd_pairs_case
 
 
 def _t(a):
@@ -178,3 +182,91 @@ def test_extended_window_location_and_packed_planes(three_n, undirectional):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     assert (np.asarray(want.orientation) != jshd.NONE).sum() > p // 4
+
+
+def _shd_pairs_jax(c, three_n, undirectional):
+    """The JAX package's SHD stage on a torch_helpers.shd_pairs_case:
+    pack_read_planes, the per-pair gathers, shd_pairs_packed_planes
+    (Pallas shd_best in interpret mode on the CPU)."""
+    width = c["reads"].shape[1]
+    g_hi, g_lo = shd_pallas.pack_genome_planes(jnp.asarray(c["genome"]))
+    planes = jshd.pack_read_planes(jnp.asarray(c["reads"]),
+                                   jnp.asarray(c["read_len"]), three_n,
+                                   undirectional=undirectional)
+    ridx = jnp.asarray(c["ridx"].astype(np.int32))
+    i32 = lambda k: jnp.asarray(c[k].astype(np.int32))
+    return jshd.shd_pairs_packed_planes(
+        g_hi, g_lo, i32("gstart"), i32("alen"), i32("aleft"),
+        *[x[ridx] for x in planes], jnp.asarray(c["read_len"])[ridx],
+        jnp.asarray(c["valid"]),
+        jshd.ShdParams(c["ws"], c["ws"] + width, width, c["max_pct"]),
+        three_n=three_n, undirectional=undirectional)
+
+
+@pytest.mark.parametrize("mode", ["threeN", "parity", "undirectional"])
+@pytest.mark.parametrize("shape", [
+    dict(), dict(width=128, n_reads=64, p=256, ws=128, max_pct=0.05),
+    dict(width=100, ws=96, p=97)], ids=["w40", "flagship", "w100"])
+def test_shd_pairs_best_matches_jax(mode, shape):
+    """shd_pairs_best on CPU tensors (its plain version, what the coarse
+    mapper runs on the CPU) == the JAX SHD stage, exact, on
+    torch_helpers.shd_pairs_case's edge cases."""
+    c = shd_pairs_case(17, mode, **shape)
+    three_n, und = mode != "parity", mode == "undirectional"
+    want = _shd_pairs_jax(c, three_n, und)
+    g_hi, g_lo = pack_genome_planes(_t(c["genome"]))
+    width = c["reads"].shape[1]
+    before = sk.shd_pairs_best.launches
+    got = shd.shd_pairs_best(
+        *[_t(c[k]) for k in ("reads", "read_len", "ridx")], g_hi, g_lo,
+        *[_t(c[k]) for k in ("gstart", "alen", "aleft", "valid")],
+        shd.ShdParams(c["ws"], c["ws"] + width, width, c["max_pct"]),
+        three_n=three_n, undirectional=und)
+    assert sk.shd_pairs_best.launches == before           # CPU: no launch
+    for g, w, dtype in zip(got, want, (torch.int32, torch.int32, torch.int8)):
+        assert g.dtype == dtype
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    ori, ham = got.orientation.numpy(), got.hamming.numpy()
+    rl = c["read_len"][c["ridx"]]
+    too_long = rl > c["alen"]
+    assert too_long.any() and (ori[too_long] == shd.NONE).all()
+    assert (ham[too_long] == rl[too_long]).all()
+    assert (ori[~c["valid"]] == shd.NONE).all()
+    assert (ori != shd.NONE).sum() > len(ori) // 3
+    # the A/T palindromes score the same in both orientations: forward
+    pal = np.isin(c["ridx"], [3, 4]) & c["valid"] & (ham == 0)
+    assert pal.any() and (ori[pal] == shd.FORWARD).all()
+
+
+@pytest.mark.parametrize("undirectional", [False, True])
+def test_coarse_step_runs_the_shd_stage_through_shd_pairs_best(
+        monkeypatch, undirectional):
+    """The coarse mapper evaluates its pairs with shd_pairs_best: once a
+    batch, twice under --undirectional (the mirrored spaces)."""
+    from hashreadmapper_tpu_torch.config import ProgramOptions
+    from hashreadmapper_tpu_torch.io.genome import Genome
+    from hashreadmapper_tpu_torch.pipeline.engine import CoarseMapper
+    rng = np.random.default_rng(2)
+    chrom = rng.integers(0, 4, size=20_000, dtype=np.int8)
+    genome = Genome(["chrS"], [np.frombuffer(b"ACGT", np.uint8)[chrom]
+                               .tobytes().decode()])
+    starts = rng.integers(0, 20_000 - 80, size=64)
+    reads = chrom[starts[:, None] + np.arange(80)[None, :]].copy()
+    reads[(reads == 1) & (rng.random(reads.shape) < 0.9)] = 3
+    opts = ProgramOptions(
+        kmer_length=16, num_hash_functions=8, window_size=128,
+        min_table_hits=2, batchsize=32, max_hamming_percent=0.2,
+        probe_cap=16, candidates_per_read_cap=8, max_read_length=96,
+        three_n_seeding=True, undirectional=undirectional,
+        shd_pairs_per_read_budget=4)
+    calls = []
+    real = shd.shd_pairs_best
+
+    def counting(*args, **kw):
+        calls.append(kw["undirectional"])
+        return real(*args, **kw)
+    monkeypatch.setattr(shd, "shd_pairs_best", counting)
+    res = CoarseMapper(genome, opts, "cpu").map_reads(
+        reads, np.full(64, 80, np.int32))
+    assert calls == ([False, True] * 2 if undirectional else [False] * 2)
+    assert (res.orientation != shd.NONE).mean() > 0.8

@@ -123,3 +123,61 @@ def sw_edge_pairs(seed, lq, n_cols, n=40):
     masks[e["mask_len 14"]] = 14
     masks[12::9] = 10
     return rc, rls, fc, fls, masks
+
+
+def shd_pairs_case(seed, mode, n_reads=48, width=40, p=160, ws=64,
+                   g_len=3000, max_pct=0.2):
+    """Inputs of ops/shd.py::shd_pairs_best as numpy arrays (one
+    chromosome at offset 0): reads planted at their pairs' windows (C->T
+    converted in 3N mode, G->A under `undirectional`, a third reverse
+    complemented) beside random pairs, with the edge cases: a read of
+    length 0 and one longer than its row, anchors at the genome's first
+    and last word, windows cut by the chromosome's end (reads longer than
+    their anchor), invalid pairs, A/T palindromes on an A/T stretch (equal
+    scores in both orientations) and a period-2 stretch (equal scores at
+    many shifts).  Returns a dict of genome, reads [B, width], read_len,
+    ridx, gstart, alen, aleft, valid, ws, max_pct."""
+    import torch
+    from hashreadmapper_tpu_torch.ops import shd
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, g_len).astype(np.int8)
+    genome[1000:1200] = rng.choice([0, 3], 200)
+    half = rng.choice([0, 3], width // 2).astype(np.int8)
+    genome[1060:1060 + 2 * len(half)] = np.concatenate(
+        [half, 3 - half[::-1]])                     # A/T palindrome
+    genome[1500:1700] = np.tile([0, 1], 100)
+    read_len = rng.integers(width // 2, width + 1, n_reads)
+    read_len[:3] = [0, width + 3, width]
+    src = rng.integers(0, g_len - width, n_reads)
+    src[3:6] = [1060, 1060, 1540]                   # palindrome, period 2
+    read_len[3:5] = 2 * len(half)
+    src[6] = 0                                      # first word
+    src[7] = g_len - width                          # last word
+    reads = rng.integers(0, 4, (n_reads, width)).astype(np.int8)
+    conv = rng.random((n_reads, width)) < 0.9
+    for i in range(n_reads):
+        n = min(int(read_len[i]), width)
+        r = genome[src[i]:src[i] + n].copy()
+        if i > 5 and i % 3 == 0:
+            r = 3 - r[::-1]
+        if mode == "threeN":
+            r[(r == 1) & conv[i, :n]] = 3
+        elif mode == "undirectional":
+            r[(r == 2) & conv[i, :n]] = 0
+        reads[i, :n] = r
+    ridx = np.arange(p) % n_reads
+    # window starts: the read's source less an offset inside the window,
+    # or anywhere; then the edges
+    pos = np.where(np.arange(p) % 4 == 3, rng.integers(0, g_len - 1, p),
+                   np.clip(src[ridx] - rng.integers(0, ws // 2, p), 0,
+                           g_len - 1))
+    pos[6], pos[7], pos[8] = 0, g_len - 10, g_len - ws - 1
+    ridx[6:9] = [6, 7, 7]
+    loc = shd.extended_window_location(
+        torch.from_numpy(pos), torch.full((p,), g_len),
+        torch.from_numpy(read_len[ridx]), ws)
+    valid = np.arange(p) % 7 != 5
+    return dict(genome=genome, reads=reads, read_len=read_len.astype(np.int32),
+                ridx=ridx.astype(np.int64), gstart=loc.start.numpy(),
+                alen=loc.length.numpy(), aleft=loc.left.numpy(), valid=valid,
+                ws=ws, max_pct=max_pct)
