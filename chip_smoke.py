@@ -4,13 +4,14 @@
 
 Phase 0  card, torch and CUDA versions; builds the native host library
          and the kernels through the port's _build.
-Phase 1  each of the twelve CUDA kernels (the eight counterparts of the TPU
-         kernels; the fused traceback, which runs the fill's passes and
+Phase 1  each of the thirteen CUDA kernels (the eight counterparts of the
+         TPU kernels; the fused traceback, which runs the fill's passes and
          the walk in one launch; the forward and the reverse score pass,
          which take the pairs as the engine has them and do the striped
          layout, the flip and shifts and the second-best search around
          the column pass in the same launch; the coarse mapper's SHD
-         stage, read planes to orientation, in one launch) against its
+         stage, read planes to orientation, in one launch; its signature
+         stage, raw bases to masked signatures, in one launch) against its
          plain PyTorch version at the main path's shapes (integers:
          exact), the score passes on short indel pairs and on
          flagship-like pairs, the vote also on the shared-memory side of
@@ -105,10 +106,22 @@ SM_CLOCKS_PER_S = 67e12 / (128 * 2)
 PIPE_LANES = {"alu": 64, "fma": 64, "popc": 16}
 ISSUE_LANES = 128
 # 32-bit instructions of one murmur64 fmix of (k-mer + hash id) kept
-# against a running 64-bit minimum: two 64-bit multiplies (4 multiply-adds
-# each), three 64-bit xor-shifts (2 each) and the compare-and-keep (3) on
-# the ALU, the add with carry (2) on either pipe
-OPS_PER_HASH = {"fma": 8, "alu": 9, "either": 2}
+# against a running 64-bit minimum, as csrc/minhash.cu computes it on its
+# input's range (k-mer and hash id below 2**32) and as its SASS shows
+# (tools/kernel_build_report.py minhash_kernel): the first xor-shift is
+# the identity there and (k-mer + id) * C1 = k-mer * C1 + id * C1, so a
+# hash is the 64-bit add of the two products (an add with carry-out on the
+# ALU, the carry-in add IMAD.X on the FMA pipe), two xor-shifts (a shift
+# and a xor each, ALU), the second multiply (one wide product and two
+# multiply-adds that take the high word's adds, FMA) and the
+# compare-and-keep (2 compares, 2 selects, ALU): 9 ALU and 4 FMA; k-mer *
+# C1 (a wide product and a multiply-add) is shared by the hash ids of a
+# k-mer.  A wide product counts as one FMA instruction, though it issues
+# at about a third of IMAD's rate (tools/int_rates.py).  The first design
+# counted 19: both multiplies in full (8 multiply-adds), three xor-shifts
+# and the compare-and-keep.
+OPS_PER_HASH = {"alu": 9, "fma": 4}
+OPS_PER_KMER = {"fma": 2}
 # A read word of one shift of SHD: three logic operations, an add and a
 # popcount (no shift: the read can be aligned once for each sub-word
 # shift, and the anchor words then compared as they stand)
@@ -131,6 +144,14 @@ def ops(n, per=None):
     """Instructions of n units of work, by pipe: `per` a unit (a dict of
     OPS_PER_*), or n ALU instructions."""
     return {k: n * v for k, v in (per or {"alu": 1}).items()}
+
+
+def hash_ops(hashes, kmers):
+    """Instructions of `hashes` murmur hashes of `kmers` k-mers."""
+    out = ops(hashes, OPS_PER_HASH)
+    for k, v in ops(kmers, OPS_PER_KMER).items():
+        out[k] = out.get(k, 0) + v
+    return out
 
 
 def log(*args):
@@ -330,13 +351,13 @@ def phase1():
         lens = torch.from_numpy(lengths.astype(np.int32)).to(dev)
         hid = torch.arange(f, dtype=torch.int64, device=dev)
         args = (bases, lens, k, hid, mode)
-        hashes = n_valid(lengths, maxlen) * f * (2 if mode == "both" else 1)
+        kmers = n_valid(lengths, maxlen) * (2 if mode == "both" else 1)
         return dict(key="minhash", name="minhash",
                     shape=f"N={n} L={maxlen} F={f} mode={mode}",
                     kernel=lambda: mk.sigs_from_bases(*args),
                     plain=lambda: mk.sigs_from_bases_plain(*args),
                     bound=lambda out: (nbytes(bases, lens, hid, *out),
-                                       ops(hashes, OPS_PER_HASH)))
+                                       hash_ops(kmers * f, kmers)))
 
     read_lens = np.full(4096, 100)
     read_lens[::97] = rng.integers(0, 128, size=len(read_lens[::97]))
@@ -419,14 +440,19 @@ def phase1():
     klens = torch.from_numpy(read_lens.astype(np.int32)).to(dev)
     hid = torch.arange(f, dtype=torch.int64, device=dev)
     sig_args = (kmers, klens, k, hid)
-    # the kernel reads the k-mers as 32-bit words
-    cases.append(dict(
-        key="sig_min_murmur", name="sig_min_murmur",
-        shape=f"N={n} P={npos} (L=128, k={k}) F={f}",
-        kernel=lambda: mk.sig_min_murmur(*sig_args),
-        plain=lambda: mk.sig_min_murmur_plain(*sig_args),
-        bound=lambda out: (nbytes(kmers) // 2 + nbytes(klens, hid, *out),
-                           ops(n_valid(read_lens, 128) * f, OPS_PER_HASH))))
+    # the k-mers as the caller holds them: int64 (the kernel reads each
+    # element's low word, and the bound counts the whole element) or int32
+    for words in (kmers, kmers.to(torch.int32)):
+        cases.append(dict(
+            key="sig_min_murmur", name="sig_min_murmur",
+            shape=f"N={n} P={npos} (L=128, k={k}) F={f}, {words.dtype} "
+                  "k-mers",
+            kernel=lambda w=words: mk.sig_min_murmur(w, *sig_args[1:]),
+            plain=lambda w=words: mk.sig_min_murmur_plain(w, *sig_args[1:]),
+            bound=lambda out, w=words: (
+                nbytes(w, klens, hid, *out),
+                hash_ops(n_valid(read_lens, 128) * f,
+                         n_valid(read_lens, 128)))))
     ham_args = planes + (n_shifts, wa, wr)
     cases.append(dict(
         key="shd_hamming_matrix", name="shd_hamming_matrix",
@@ -438,6 +464,7 @@ def phase1():
 
     cases.extend(step2_cases(rng, dev))
     cases.append(shd_stage_case(dev))
+    cases.extend(minhash_stage_cases(dev))
     records = {}
     for case in cases:
         name, shape = case["name"], case["shape"]
@@ -485,11 +512,12 @@ def phase1():
             rec["other_cases"].append(times)
 
     # the kernels that superseded the two, on the card; these launches
-    # are the three kernels' count in the kernels line (sig_min_murmur and
+    # are the four kernels' count in the kernels line (sig_min_murmur and
     # shd_hamming_matrix have no caller, as in the JAX package; shd_best
-    # none on the main path, whose SHD stage is the fused entry)
+    # and sigs_from_bases none on the main path, whose SHD and signature
+    # stages are fused entries)
     mk.sig_min_murmur.launches = sk.shd_hamming_matrix.launches = 0
-    sk.shd_best.launches = 0
+    sk.shd_best.launches = mk.sigs_from_bases.launches = 0
     want = mk.sigs_from_bases(torch.from_numpy(bases_np).to(dev), klens, k,
                               hid, "fwd")
     if not torch.equal(mk.sig_min_murmur(*sig_args), want):
@@ -513,7 +541,8 @@ def phase1():
         "of shd_hamming_matrix, earliest shift on ties == shd_best")
     for key, fn in (("sig_min_murmur", mk.sig_min_murmur),
                     ("shd_hamming_matrix", sk.shd_hamming_matrix),
-                    ("shd_best", sk.shd_best)):
+                    ("shd_best", sk.shd_best),
+                    ("minhash", mk.sigs_from_bases)):
         records[key]["launches"] = fn.launches
     # the single-pass fill's and the unfused striped pass's launches so
     # far, all of this phase
@@ -585,6 +614,62 @@ def shd_stage_case(dev):
         plain=lambda: shd.shd_pairs_best_plain(*args(card), three_n=True),
         bound=lambda out: (moved + nbytes(*out),
                            ops(2 * shifts_run * wr, OPS_PER_SHD_WORD)))
+
+
+def minhash_stage_cases(dev):
+    """The fused signature stage (ops/minhash_kernel.py::signature_stage)
+    at the main path's shapes: a batch of 4,096 planted reads (the flagship
+    recipe, 100 bases in rows of 128; every 97th of another length) in
+    directional 3N, the mirrored spaces of --undirectional and parity
+    mode's canonical k-mers, and 4,096 windows of 128 bases in the 3N index
+    build's 'pair' mode; F 16, k 16.  Each against its plain composition
+    on the card (the collapse, sigs_from_bases' plain version, the mask and
+    SENTINEL rows, the swap) and, once here, the directional case against
+    the plain composition on the CPU."""
+    from hashreadmapper_tpu_torch.ops import minhash_kernel as mk
+    rng = np.random.default_rng(15)
+    n, maxlen, k, f = 4096, 128, 16, 16
+    chrom = rng.integers(0, 4, size=1_000_000, dtype=np.int8)
+    reads, _, _ = planted_reads(rng, chrom, n, READ_LEN)
+    rows = np.zeros((n, maxlen), np.int8)
+    rows[:, :READ_LEN] = reads
+    lens = np.full(n, READ_LEN, np.int32)
+    lens[::97] = rng.integers(0, maxlen + 1, size=len(lens[::97]))
+    starts = rng.integers(0, len(chrom) - maxlen, size=n)
+    windows = chrom[starts[:, None] + np.arange(maxlen)[None, :]]
+    win_lens = np.full(n, maxlen, np.int32)
+    win_lens[-5:] = [0, 15, 16, 17, 60]
+    hid = torch.arange(f, dtype=torch.int64, device=dev)
+    host = (torch.from_numpy(rows), torch.from_numpy(lens))
+    got = mk.signature_stage(host[0].to(dev), host[1].to(dev), k, hid,
+                             "both", "ct")
+    want = mk.signature_stage_plain(*host, k, hid.cpu(), "both", "ct")
+    if max_abs_err(tuple(x.cpu() for x in got), want) != 0:
+        raise AssertionError("signature_stage on the card != its plain "
+                             "composition on the CPU")
+    cases = []
+    for label, b, ln, mode, collapse, mirror in (
+            ("reads, 3N directional", rows, lens, "both", "ct", False),
+            ("reads, 3N mirrored (--undirectional)", rows, lens, "both", "ga",
+             True),
+            ("reads, parity (canonical)", rows, lens, "canon", None, False),
+            ("windows, 3N index build", windows, win_lens, "pair", None,
+             False)):
+        tb = torch.from_numpy(np.ascontiguousarray(b, np.int8)).to(dev)
+        tl = torch.from_numpy(ln).to(dev)
+        args = (tb, tl, k, hid, mode, collapse, mirror)
+        streams = 2 if mode in ("both", "pair") else 1
+        kmers = int(np.maximum(np.minimum(ln, maxlen) - k + 1, 0).sum()
+                    ) * streams
+        cases.append(dict(
+            key="minhash_stage", name="minhash_stage",
+            shape=f"N={n} L={maxlen} F={f} k={k}, {label}: mode={mode} "
+                  f"collapse={collapse} mirror={mirror}",
+            kernel=lambda a=args: mk.signature_stage(*a),
+            plain=lambda a=args: mk.signature_stage_plain(*a),
+            bound=lambda out, tb=tb, tl=tl, kmers=kmers: (
+                nbytes(tb, tl, hid, *out), hash_ops(kmers * f, kmers))))
+    return cases
 
 
 def indel_pairs(rng, n, lq=128, lr=128):
@@ -904,15 +989,17 @@ def kernel_wrappers():
     of the kernels JSON.  The fill's launch on that path is the fused
     traceback (all passes and the walk in one), the striped pass's the
     forward and the reverse score pass (the column pass with what stands
-    around it in one launch each).  The SHD stage is its fused entry,
-    shd_kernel.shd_pairs_best: the direct shd_best has no caller there."""
+    around it in one launch each).  The SHD and signature stages are
+    their fused entries, shd_kernel.shd_pairs_best and
+    minhash_kernel.signature_stage: the direct shd_best and
+    sigs_from_bases have no caller there."""
     from hashreadmapper_tpu_torch.ops.bandtb_kernel import shift_sub, traceback
-    from hashreadmapper_tpu_torch.ops.minhash_kernel import sigs_from_bases
+    from hashreadmapper_tpu_torch.ops.minhash_kernel import signature_stage
     from hashreadmapper_tpu_torch.ops.shd_kernel import shd_pairs_best
     from hashreadmapper_tpu_torch.ops.swdev_kernel import (sw_forward,
                                                            sw_reverse)
     from hashreadmapper_tpu_torch.ops.vote_kernel import vote_candidates_fnc
-    return {"minhash": sigs_from_bases, "vote": vote_candidates_fnc,
+    return {"minhash_stage": signature_stage, "vote": vote_candidates_fnc,
             "shd_pairs_best": shd_pairs_best, "sw_forward": sw_forward,
             "sw_reverse": sw_reverse, "shift_sub": shift_sub,
             "traceback": traceback}
@@ -923,22 +1010,28 @@ def counted(label, fn):
     and read just after: (result, seconds, launches).  Fails when a kernel
     of the path was never launched, when the path went through the
     unfused striped pass (which builds the striped read tensor and the
-    per-column maxima in device memory) or the direct shd_best kernel
-    (the SHD stage as torch operations around it), or when jax or the JAX
-    package got imported."""
+    per-column maxima in device memory), the direct shd_best kernel (the
+    SHD stage as torch operations around it) or the direct
+    sigs_from_bases (the signature stage as torch operations around it),
+    or when jax or the JAX package got imported."""
+    from hashreadmapper_tpu_torch.ops.minhash_kernel import sigs_from_bases
     from hashreadmapper_tpu_torch.ops.shd_kernel import shd_best
     from hashreadmapper_tpu_torch.ops.swdev_kernel import pass_batched
     kernels = kernel_wrappers()
     for k in kernels.values():
         k.launches = 0
     unfused = pass_batched.launches
-    shd_best.launches = 0
+    shd_best.launches = sigs_from_bases.launches = 0
     t0 = time.perf_counter()
     res = fn()
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in kernels.items()}
     log(f"{label} kernel launches: {launches}; the direct shd_best: "
-        f"{shd_best.launches}")
+        f"{shd_best.launches}, sigs_from_bases: {sigs_from_bases.launches}")
+    if sigs_from_bases.launches != 0:
+        raise AssertionError(f"{label}: the signature stage went through "
+                             f"sigs_from_bases ({sigs_from_bases.launches} "
+                             "launches), not the fused entry")
     if shd_best.launches != 0:
         raise AssertionError(f"{label}: the SHD stage went through the "
                              f"direct shd_best ({shd_best.launches} "
@@ -956,8 +1049,38 @@ def counted(label, fn):
         raise AssertionError(f"{label}: a kernel of the path never "
                              f"launched: {launches}")
     launches["shd_best_direct"] = shd_best.launches
+    launches["sigs_from_bases_direct"] = sigs_from_bases.launches
     check_no_jax()
     return res, wall, launches
+
+
+# the index build's signature stage alone, by configuration: (windows,
+# launches, seconds); printed in the kernels line
+INDEX_SIGNATURES = {}
+
+
+def index_signatures(label, mapper):
+    """One run of the index build's signature stage on the card
+    (mapper.window_signatures: every superbatch's window gather and its
+    one launch): windows, launches and seconds."""
+    from hashreadmapper_tpu_torch.ops.minhash_kernel import (
+        signature_stage, sigs_from_bases)
+    torch.cuda.synchronize()
+    signature_stage.launches = sigs_from_bases.launches = 0
+    t0 = time.perf_counter()
+    mapper.window_signatures()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    w = mapper.table.num_windows
+    log(f"{label} index build's window signatures: {w} windows, "
+        f"{signature_stage.launches} launches of the signature stage "
+        f"(sigs_from_bases {sigs_from_bases.launches}), {secs:.4f} s")
+    if sigs_from_bases.launches or not signature_stage.launches:
+        raise AssertionError(f"{label}: the index build's signatures did not "
+                             "go through the fused stage")
+    INDEX_SIGNATURES[label] = {"windows": w,
+                               "launches": signature_stage.launches,
+                               "seconds": secs}
 
 
 def check_no_jax():
@@ -1098,6 +1221,7 @@ def phase2(tmp):
     _, _, frac = sam_fractions("phase2", out + ".SAM", N_READS, starts, junk)
 
     mapper = res["mapper"]
+    index_signatures("phase2 flagship", mapper)
     lens = np.full(N_READS, READ_LEN, np.int32)
     padded = np.zeros((N_READS, 128), np.int8)
     padded[:, :READ_LEN] = reads
@@ -1342,6 +1466,7 @@ def phase4(device="cuda"):
     mapper = CoarseMapper(genome, opts, device)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
+    index_signatures("phase4 chr1-size", mapper)
     lens = np.full(N_READS, READ_LEN, np.int32)
     padded = np.zeros((N_READS, 128), np.int8)
     padded[:, :READ_LEN] = reads
@@ -1421,7 +1546,12 @@ def main():
             # the same pallas_call with what shd.py builds around it:
             # pack_read_planes (:330), the per-pair gathers and
             # shd_pairs_packed_planes (:364)
-            "shd_pairs_best": (src + "shd.cu", ref + "shd_pallas.py:217")}
+            "shd_pairs_best": (src + "shd.cu", ref + "shd_pallas.py:217"),
+            # the same pallas_call with what minhash.py builds around it:
+            # the 3N collapse, the k < 16 mask and SENTINEL rows (:165-171)
+            # and the mirrored halves of signatures_3n_pair
+            "minhash_stage": (src + "minhash.cu",
+                              ref + "minhash_pallas.py:171")}
     from hashreadmapper_tpu_torch.ops.bandtb_kernel import fill_pass
     from hashreadmapper_tpu_torch.ops.swdev_kernel import pass_batched
     # the fill's launch on the main path is the fused traceback (one a
@@ -1471,6 +1601,15 @@ def main():
                          "with hrm_shd_best on planes it builds itself; "
                          "hrm_shd_best's own launches in the three CLI runs "
                          "are launches_main_path")
+            if name == "minhash":
+                entry["launches_main_path"] = [
+                    d["sigs_from_bases_direct"]
+                    for d in (launches, launches_und, launches_par)]
+                path += ("; the main path's signature stage is "
+                         "minhash_stage, the same kernel (minhash_kernel) "
+                         "launched with the collapse, mask, SENTINEL rows "
+                         "and mirror inside; sigs_from_bases' own launches "
+                         "in the three CLI runs are launches_main_path")
             entry.update(launches=rec["launches"], path=path)
         entry.update({k: rec[k] for k in (
             "max_abs_err", "ms", "call_ms", "host_ms", "plain_ms", "bound_ms",
@@ -1479,6 +1618,7 @@ def main():
         kernels.append(entry)
     print(json.dumps({
         "kernels": kernels,
+        "index_build_signatures": INDEX_SIGNATURES,
         "device_launches_per_batch": per_batch["every device launch"],
         "device_launches_per_batch_undirectional":
             per_batch_und["every device launch"]}))

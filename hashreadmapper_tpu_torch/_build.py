@@ -50,8 +50,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # entry point -> argtypes (pointers and the stream as c_void_p, ints c_int)
 _SIGNATURES = {
-    # bases, lengths, hash_ids, out, n, maxlen, k, f, mode, stream
-    "hrm_minhash_sigs": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # bases, lengths, hash_ids, out, valid, n, maxlen, k, f, mode,
+    # collapse, finish, mirror, stream
+    "hrm_minhash_stage": [_P] * 5 + [_I] * 8 + [_P],
     # cand, ids, counts, num_kept, f, n, c, min_hits, out_cap, stream
     "hrm_vote": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # a_hi, a_lo, r_hi, r_lo, mask, bounds, out, p, wa, wr, n_shifts, stream
@@ -75,8 +76,8 @@ _SIGNATURES = {
     # counters, p, m_max, nl, n_entries, run_cap, entry_bytes, n_passes,
     # smem_cells, blocks, stream
     "hrm_traceback": [_P] * 11 + [_I] * 9 + [_P],
-    # kmer_lo, lengths, hash_ids, out, n, npos, k, f, stream
-    "hrm_sig_min_murmur": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # kmer, elem_bytes, lengths, hash_ids, out, n, npos, k, f, stream
+    "hrm_sig_min_murmur": [_P, _I, _P, _P, _P] + [_I] * 4 + [_P],
     # a_hi, a_lo, r_hi, r_lo, mask, out, p, wa, wr, n_shifts, stream
     "hrm_shd_hamming_matrix": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # bases, read_len, ridx, g_hi, g_lo, gstart, alen, aleft, valid, ham,

@@ -359,38 +359,41 @@ class CoarseMapper:
             yield (chrom_offset[win_chrom[s0:s1]] + win_pos[s0:s1],
                    win_len[s0:s1])
 
-    def _build_window_index(self, sig_batch: int) -> mi.CsrIndex:
-        """Window signatures (3N: both spaces, [W, 2F] = [CT | GA]; parity:
-        canonical k-mers, [W, F]), then the CSR build, all on the device."""
+    def window_signatures(self, sig_batch: int = 4096):
+        """(sig, valid) of every window: 3N [W, 2F] = [CT | GA] forward
+        k-mers, parity [W, F] canonical k-mers.  Each superbatch's bases
+        are gathered on the device and hashed into its rows of one output:
+        one launch a superbatch on the card, the plain composition in
+        chunks of sig_batch rows on the CPU."""
         opts = self.opts
-        progress = ProgressReporter(self.table.num_windows,
-                                    label="hash windows",
+        f = len(self.hash_ids)
+        w = self.table.num_windows
+        out = (torch.empty((w, 2 * f if opts.three_n_seeding else f),
+                           dtype=torch.int64, device=self.device),
+               torch.empty((w,), dtype=torch.bool, device=self.device))
+        progress = ProgressReporter(w, label="hash windows",
                                     enabled=opts.show_progress)
-        sig_parts, valid_parts = [], []
+        s0 = 0
         for gstart, lens in self.iter_window_superbatch_starts(sig_batch):
+            s1 = s0 + len(lens)
             bdev = window_bases_device(
                 self.table.genome_concat,
                 torch.from_numpy(gstart).to(self.device), opts.window_size)
-            ldev = torch.from_numpy(lens).to(self.device)
-            if opts.three_n_seeding:
-                s_ct, v = minhash.minhash_signatures_chunked(
-                    encode.three_n_c_to_t(bdev), ldev, opts.kmer_length,
-                    self._hash_ids_dev, sig_batch, canonical=False)
-                s_ga, _ = minhash.minhash_signatures_chunked(
-                    encode.three_n_g_to_a(bdev), ldev, opts.kmer_length,
-                    self._hash_ids_dev, sig_batch, canonical=False)
-                sigs = torch.cat([s_ct, s_ga], dim=1)
-            else:
-                sigs, v = minhash.minhash_signatures_chunked(
-                    bdev, ldev, opts.kmer_length, self._hash_ids_dev,
-                    sig_batch)
-            sig_parts.append(sigs)
-            valid_parts.append(v)
+            ldev = torch.from_numpy(lens.astype(np.int32)).to(self.device)
+            minhash.window_signatures(
+                bdev, ldev, opts.kmer_length, self._hash_ids_dev,
+                opts.three_n_seeding, sig_batch,
+                out=(out[0][s0:s1], out[1][s0:s1]))
+            s0 = s1
             progress.add(len(lens))
         if opts.show_progress:
             progress.finish()
+        return out
+
+    def _build_window_index(self, sig_batch: int) -> mi.CsrIndex:
+        """Window signatures, then the CSR build, all on the device."""
         return mi.build_csr_index_device(
-            torch.cat(sig_parts), torch.cat(valid_parts), opts.kmer_length,
+            *self.window_signatures(sig_batch), self.opts.kmer_length,
             self.hash_ids)
 
     def save_index(self, path: str) -> None:

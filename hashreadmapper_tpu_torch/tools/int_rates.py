@@ -13,7 +13,8 @@ every loop are printed first, so one sees what was timed.
     python -m hashreadmapper_tpu_torch.tools.int_rates
 
 Compiles its own small source with the package's nvcc flags into a
-temporary directory; needs nvcc, the cuobjdump beside it and one card.
+temporary directory; the minhash hash it times is csrc/murmur.cuh's, the
+kernels' own.  Needs nvcc, the cuobjdump beside it and one card.
 """
 
 import ctypes
@@ -31,20 +32,27 @@ from .kernel_build_report import sass_lines
 MODES = (("LOP3", 1), ("IADD", 1), ("IMAD", 1), ("max (VIMNMX)", 1),
          ("s16x2 add-max (VIADDMNMX DPX)", 1), ("POPC + IADD", 2),
          ("IMAD + LOP3", 2), ("max + LOP3", 2), ("s16x2 add-max + LOP3", 2),
-         ("s16x2 add-max + IMAD", 2), ("max + IMAD", 2))
+         ("s16x2 add-max + IMAD", 2), ("max + IMAD", 2),
+         ("IMAD.WIDE (64-bit accumulate)", 1), ("IMAD.WIDE + LOP3", 2),
+         ("csrc/murmur.cuh's hash and keep (hashes, not instructions)", 1),
+         ("IMAD.HI", 1))
 
 SOURCE = r"""
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "murmur.cuh"
+
 template <int MODE>
 __global__ void rate_kernel(uint32_t* out, long long* cycles, int iters,
                             uint32_t a, uint32_t b) {
   uint32_t x[8], y[8];
+  uint64_t w[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     x[i] = a * (threadIdx.x + 1) + i;
     y[i] = b * (threadIdx.x + 3) + i;
+    w[i] = ~0ULL;
   }
   __syncthreads();
   const long long t0 = clock64();
@@ -67,13 +75,27 @@ __global__ void rate_kernel(uint32_t* out, long long* cycles, int iters,
         x[i] = __viaddmax_s16x2(x[i], a, x[j]);                // DPX
       if (MODE == 9) y[i] = __viaddmax_s16x2(y[i], a, y[j]);
       if (MODE == 5) x[i] += __popc(x[i]);
+      if (MODE == 11 || MODE == 12)                      // IMAD.WIDE.U32
+        w[i] = static_cast<uint64_t>(static_cast<uint32_t>(w[i] >> 32)) * a
+               + w[i];
+      if (MODE == 12) y[i] = (y[i] ^ a) & (y[i] | b);
+      if (MODE == 13) {
+        // csrc/murmur.cuh's keep() on k-mer x[i] and hash id b, with
+        // x[i] * C1 a hash (the kernel shares it by the ids of a k-mer)
+        hrm_murmur::keep(static_cast<uint64_t>(x[i]) * hrm_murmur::kC1,
+                         static_cast<uint64_t>(b) * hrm_murmur::kC1, true,
+                         w[i]);
+        x[i] += a;
+      }
+      if (MODE == 14) x[i] = __umulhi(x[i], a) + x[j];     // IMAD.HI
     }
   }
   __syncthreads();
   const long long t1 = clock64();
   uint32_t s = 0;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) s += x[i] ^ y[i];
+  for (int i = 0; i < 8; ++i)
+    s += x[i] ^ y[i] ^ static_cast<uint32_t>(w[i]) ^ (w[i] >> 32);
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
   if (threadIdx.x == 0) cycles[blockIdx.x] = t1 - t0;
 }
@@ -99,6 +121,10 @@ extern "C" int hrm_rate(int mode, void* out, void* cycles, int blocks,
     case 8: run<8>(o, c, blocks, iters); break;
     case 9: run<9>(o, c, blocks, iters); break;
     case 10: run<10>(o, c, blocks, iters); break;
+    case 11: run<11>(o, c, blocks, iters); break;
+    case 12: run<12>(o, c, blocks, iters); break;
+    case 13: run<13>(o, c, blocks, iters); break;
+    case 14: run<14>(o, c, blocks, iters); break;
     default: return -1;
   }
   return static_cast<int>(cudaDeviceSynchronize());
@@ -116,11 +142,12 @@ def main():
         with open(src, "w") as fh:
             fh.write(SOURCE)
         lib_path = os.path.join(tmp, "librates.so")
-        subprocess.run([nvcc, *_build.NVCC_FLAGS, "-shared", "-o", lib_path,
-                        src], check=True)
+        inc = ("-I", _build.CSRC_DIR)          # csrc/murmur.cuh
+        subprocess.run([nvcc, *_build.NVCC_FLAGS, *inc, "-shared", "-o",
+                        lib_path, src], check=True)
         cubin = os.path.join(tmp, "rates.cubin")
-        subprocess.run([nvcc, *_build.NVCC_FLAGS, "-cubin", "-o", cubin, src],
-                       check=True)
+        subprocess.run([nvcc, *_build.NVCC_FLAGS, *inc, "-cubin", "-o", cubin,
+                        src], check=True)
         if os.path.exists(cuobjdump):
             sass = subprocess.run([cuobjdump, "-sass", cubin],
                                   capture_output=True, text=True,

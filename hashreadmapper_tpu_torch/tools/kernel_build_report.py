@@ -65,7 +65,11 @@ def main(words):
             cubin = os.path.join(tmp, os.path.basename(src) + ".cubin")
             done = subprocess.run(
                 [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-cubin", "-o",
-                 cubin, src], capture_output=True, text=True, check=True)
+                 cubin, src], capture_output=True, text=True)
+            if done.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src} (code "
+                                   f"{done.returncode}):\n{done.stdout}"
+                                   f"{done.stderr}")
             print("\n".join(ptxas_lines(done.stdout + done.stderr)))
             if words:
                 sass = subprocess.run([cuobjdump, "-sass", cubin],

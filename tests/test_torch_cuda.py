@@ -41,20 +41,62 @@ def _launched_once(wrapper, fn):
     return out
 
 
-@pytest.mark.parametrize("k,mode", [(8, "fwd"), (12, "both"), (16, "canon"),
-                                    (16, "both"), (5, "fwd")])
-def test_minhash_kernel_equals_plain(dev, k, mode):
-    rng = np.random.default_rng(k)
-    bases = torch.from_numpy(rng.integers(0, 4, size=(300, 45),
+def _rows(rng, n, maxlen, k, dev):
+    """n rows of codes 0..3 and lengths: 0, k - 1, k, the row, past it."""
+    bases = torch.from_numpy(rng.integers(0, 4, size=(n, maxlen),
                                           dtype=np.int8)).to(dev)
-    lens = rng.integers(0, 60, size=300).astype(np.int32)
-    lens[:4] = [0, k - 1, k, 45]
-    lens = torch.from_numpy(lens).to(dev)
-    hid = torch.tensor([0, 1, 9, 2**32 - 1], dtype=torch.int64, device=dev)
-    got = _launched_once(mk.sigs_from_bases, lambda: mk.sigs_from_bases(
-        bases, lens, k, hid, mode))
-    want = mk.sigs_from_bases_plain(bases, lens, k, hid, mode)
-    assert torch.equal(got, want)
+    lens = rng.integers(0, maxlen + 15, size=n).astype(np.int32)
+    lens[:5] = [0, k - 1, k, maxlen, maxlen + 9]
+    return bases, torch.from_numpy(lens).to(dev)
+
+
+def _hash_ids(rng, f, dev):
+    """F ids, the first near 2**32 (the hash's carry into the high word)."""
+    hid = rng.integers(0, 2**32, size=f, dtype=np.int64)
+    hid[0] = 2**32 - 1 - (f - 1) % 3
+    return torch.from_numpy(hid).to(dev)
+
+
+@pytest.mark.parametrize("f", [1, 16, 32])
+@pytest.mark.parametrize("k", [1, 8, 15, 16])
+@pytest.mark.parametrize("mode", ["fwd", "both", "canon"])
+def test_minhash_kernel_equals_plain(dev, mode, k, f):
+    """N = 300 (no multiple of a block's rows), rows of 45 bases (byte
+    loads) and of 128 (16-byte loads)."""
+    rng = np.random.default_rng(100 * k + f)
+    hid = _hash_ids(rng, f, dev)
+    for n, maxlen in ((300, 45), (77, 128)):
+        bases, lens = _rows(rng, n, maxlen, k, dev)
+        got = _launched_once(mk.sigs_from_bases, lambda: mk.sigs_from_bases(
+            bases, lens, k, hid, mode))
+        want = mk.sigs_from_bases_plain(bases, lens, k, hid, mode)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [12, 16])
+@pytest.mark.parametrize("mode,collapse,mirror", [
+    ("both", "ct", False), ("both", "ga", True), ("both", None, False),
+    ("canon", None, False), ("fwd", "ct", False), ("canon", "ga", False),
+    ("pair", None, False), ("pair", None, True)])
+def test_signature_stage_kernel_equals_plain(dev, mode, collapse, mirror, k):
+    """The fused stage (collapse, hash, mask, SENTINEL rows, mirror) in
+    every collapse mode, also written into rows of a larger output."""
+    rng = np.random.default_rng(k)
+    hid = _hash_ids(rng, 16, dev)
+    bases, lens = _rows(rng, 301, 128, k, dev)
+    got = _launched_once(mk.signature_stage, lambda: mk.signature_stage(
+        bases, lens, k, hid, mode, collapse, mirror))
+    want = mk.signature_stage_plain(bases, lens, k, hid, mode, collapse,
+                                    mirror)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (got[0][0] == 0xFFFFFFFF).all() and not got[1][0]
+    sig = torch.full((400, want[0].shape[1]), -1, dtype=torch.int64,
+                     device=dev)
+    valid = torch.zeros(400, dtype=torch.bool, device=dev)
+    mk.signature_stage(bases, lens, k, hid, mode, collapse, mirror,
+                       out=(sig[50:351], valid[50:351]))
+    assert torch.equal(sig[50:351], want[0]) and (sig[:50] == -1).all()
+    assert torch.equal(valid[50:351], want[1]) and not valid[351:].any()
 
 
 @pytest.mark.parametrize("f,c,min_hits,cap", [(4, 8, 1, 4), (5, 3, 2, 8),
@@ -129,18 +171,25 @@ def test_shd_best_kernel_equals_plain(dev, wr, n_shifts):
     assert torch.equal(got, sk.shd_best_plain(*args))
 
 
-@pytest.mark.parametrize("k,n,npos", [(5, 300, 36), (11, 77, 30),
-                                      (16, 129, 113), (16, 1, 1)])
-def test_sig_min_murmur_kernel_equals_plain(dev, k, n, npos):
-    """Full-range k-mer words (the hash-id add carries), rows with no
-    valid position, lengths past the clamp, N not a multiple of 128."""
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("k,n,npos,f", [(5, 300, 36, 4), (11, 77, 30, 1),
+                                        (16, 129, 113, 16), (16, 1, 1, 4),
+                                        (1, 40, 300, 32)])
+def test_sig_min_murmur_kernel_equals_plain(dev, k, n, npos, f, dtype):
+    """Full-range k-mer words with a row near 0xFFFFFFFF against hash ids
+    near 2**32 - 1 (the add carries into the high word), rows with no
+    valid position, lengths past the clamp, N not a multiple of a block's
+    rows, positions over more than one chunk; int64 k-mers (low words
+    read) and int32 words, each read as it comes."""
     rng = np.random.default_rng(k + n)
     kmers = rng.integers(0, 2**32, size=(n, npos), dtype=np.int64)
-    kmers[0] = 2**32 - 1
+    kmers[0] = 2**32 - 1 - rng.integers(0, 64, size=npos)
     lens = rng.integers(0, npos + k + 9, size=n).astype(np.int32)
-    lens[:3] = [0, k - 1, npos + k + 8][:min(3, n)]
+    lens[:3] = [npos + k + 8, 0, k - 1][:min(3, n)]
+    if dtype == torch.int32:
+        kmers = kmers.astype(np.uint32).view(np.int32)
     kmers, lens = torch.from_numpy(kmers).to(dev), torch.from_numpy(lens).to(dev)
-    hid = torch.tensor([0, 1, 9, 2**32 - 1], dtype=torch.int64, device=dev)
+    hid = _hash_ids(rng, f, dev)
     got = _launched_once(mk.sig_min_murmur,
                          lambda: mk.sig_min_murmur(kmers, lens, k, hid))
     assert torch.equal(got, mk.sig_min_murmur_plain(kmers, lens, k, hid))
@@ -737,6 +786,25 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         mk.sig_min_murmur(torch.zeros((2, 5), dtype=torch.int64, device=dev),
                           torch.zeros(2, dtype=torch.int32), 16,
                           torch.zeros(1, dtype=torch.int64, device=dev))
+    big = torch.tensor([0, 2**32], dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="hash ids must lie"):
+        mk.sigs_from_bases(torch.zeros((2, 20), dtype=torch.int8,
+                                       device=dev),
+                           torch.zeros(2, dtype=torch.int32, device=dev), 16,
+                           big)
+    with pytest.raises(ValueError, match="hash ids must lie"):
+        mk.sig_min_murmur(torch.zeros((2, 5), dtype=torch.int64, device=dev),
+                          torch.zeros(2, dtype=torch.int32, device=dev), 16,
+                          big)
+    ok = torch.tensor([0, 2**32 - 1], dtype=torch.int64, device=dev)
+    mk.signature_stage(torch.zeros((2, 20), dtype=torch.int8, device=dev),
+                       torch.zeros(2, dtype=torch.int32, device=dev), 16, ok)
+    ok[1] = 2**32                    # a new version of a checked tensor
+    with pytest.raises(ValueError, match="hash ids must lie"):
+        mk.signature_stage(torch.zeros((2, 20), dtype=torch.int8,
+                                       device=dev),
+                           torch.zeros(2, dtype=torch.int32, device=dev), 16,
+                           ok)
     z = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="S=9"):
         swk.pass_batched(z(9, 16, 4), z(4), z(4), z(8, 4), z(4), z(4), 0, 8,

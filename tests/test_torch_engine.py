@@ -11,7 +11,8 @@ import torch
 from hashreadmapper_tpu.config import ProgramOptions
 from hashreadmapper_tpu.io.genome import Genome
 from hashreadmapper_tpu.pipeline.engine import CoarseMapper as JaxMapper
-from hashreadmapper_tpu_torch.ops.minhash_kernel import sigs_from_bases
+from hashreadmapper_tpu_torch.ops.minhash_kernel import (signature_stage,
+                                                         sigs_from_bases)
 from hashreadmapper_tpu_torch.ops.shd_kernel import shd_best
 from hashreadmapper_tpu_torch.ops.vote_kernel import vote_candidates_fnc
 from hashreadmapper_tpu_torch.pipeline.engine import (
@@ -128,8 +129,8 @@ def test_packed_rows_and_overflow_match_jax(case):
     ab, al, av, n_pad = jm.stage_reads_device(reads, lengths)
     tb, tl, tv, n_pad2 = tm.stage_reads_device(reads, lengths)
     assert n_pad == n_pad2
-    counts = [f.launches for f in (sigs_from_bases, vote_candidates_fnc,
-                                   shd_best)]
+    counts = [f.launches for f in (sigs_from_bases, signature_stage,
+                                   vote_candidates_fnc, shd_best)]
     ovf_sum = np.zeros(5, np.int64)
     for s in range(0, n_pad, bsz):
         jp, jo = jm._map_batch_at(ab, al, av, jnp.int32(s), bsz,
@@ -140,7 +141,7 @@ def test_packed_rows_and_overflow_match_jax(case):
         np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
         ovf_sum += to.numpy()
     # CPU tensors take the plain versions: no kernel launched
-    assert counts == [f.launches for f in (sigs_from_bases,
+    assert counts == [f.launches for f in (sigs_from_bases, signature_stage,
                                            vote_candidates_fnc, shd_best)]
     if case.endswith("tight"):
         assert (ovf_sum > 0).all(), ovf_sum

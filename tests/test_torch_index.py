@@ -147,3 +147,54 @@ def test_jax_saved_index_loads_and_probes_identically(indexes, tmp_path):
         a, b = np.asarray(getattr(back, name)), np.asarray(getattr(jidx, name))
         assert a.dtype == b.dtype, name
         np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.mark.parametrize("three_n", [True, False], ids=["3n", "parity"])
+def test_window_signatures_match_the_jax_engine(three_n):
+    """The index build's signatures (the port's engine on the CPU: the
+    plain composition in sig_batch chunks, written into one output)
+    against what the JAX engine's _build_window_index computes from its
+    own window superbatches, on a small genome; tail windows shorter than
+    k included."""
+    from hashreadmapper_tpu.config import ProgramOptions as JaxOptions
+    from hashreadmapper_tpu.io.genome import Genome as JaxGenome
+    from hashreadmapper_tpu.ops import minhash as jminhash
+    from hashreadmapper_tpu.pipeline.engine import CoarseMapper as JaxMapper
+    from hashreadmapper_tpu_torch.config import ProgramOptions
+    from hashreadmapper_tpu_torch.io.genome import Genome
+    from hashreadmapper_tpu_torch.pipeline.engine import CoarseMapper
+
+    rng = np.random.default_rng(31)
+    seqs = ["".join(rng.choice(list("ACGT"), size=n)) for n in (3000, 1217)]
+    cfg = dict(kmer_length=16, num_hash_functions=4, window_size=64,
+               min_table_hits=1, batchsize=64, max_read_length=64,
+               three_n_seeding=three_n)
+    ensure_reference_native()
+    jm = JaxMapper(JaxGenome(["c1", "c2"], seqs), JaxOptions(**cfg),
+                   sig_batch=32)
+    tm = CoarseMapper(Genome(["c1", "c2"], seqs), ProgramOptions(**cfg),
+                      "cpu", sig_batch=32)
+    hid = jnp.asarray(jm.hash_ids)
+    want_s, want_v = [], []
+    for bases, lens, n in jm.iter_window_superbatches(32):
+        jb, jl = jnp.asarray(bases), jnp.asarray(lens)
+        if three_n:
+            s_ct, v = jminhash.minhash_signatures_chunked(
+                jnp.where(jb == 1, jnp.int8(3), jb), jl, 16, hid, 32,
+                canonical=False)
+            s_ga, _ = jminhash.minhash_signatures_chunked(
+                jnp.where(jb == 2, jnp.int8(0), jb), jl, 16, hid, 32,
+                canonical=False)
+            s = jnp.concatenate([s_ct, s_ga], axis=1)
+        else:
+            s, v = jminhash.minhash_signatures_chunked(jb, jl, 16, hid, 32)
+        want_s.append(np.asarray(s)[:n])
+        want_v.append(np.asarray(v)[:n])
+    got_s, got_v = tm.window_signatures(sig_batch=32)
+    np.testing.assert_array_equal(got_s.numpy(),
+                                  np.concatenate(want_s).astype(np.int64))
+    np.testing.assert_array_equal(got_v.numpy(), np.concatenate(want_v))
+    assert not got_v.all() and got_v.any()      # short tail windows
+    # the same signatures in one chunk
+    one_s, one_v = tm.window_signatures(sig_batch=4096)
+    assert torch.equal(one_s, got_s) and torch.equal(one_v, got_v)

@@ -12,8 +12,8 @@ from hashreadmapper_tpu.ops import minhash_pallas
 from hashreadmapper_tpu.ops import u64 as ju64
 from hashreadmapper_tpu_torch.ops import encode, minhash, u64
 from hashreadmapper_tpu_torch.ops.minhash_kernel import (
-    sig_min_murmur, sig_min_murmur_plain, sigs_from_bases,
-    sigs_from_bases_plain)
+    sig_min_murmur, sig_min_murmur_plain, signature_stage,
+    signature_stage_plain, sigs_from_bases, sigs_from_bases_plain)
 
 
 def _reads(seed, n=128, maxlen=40, k=16):
@@ -115,18 +115,22 @@ def test_signatures_3n_pair_matches_jax(k, mirror):
 
 
 def test_chunked_matches_jax_and_cpu_wrapper_launches_nothing():
+    """The index build's signatures on the CPU, in row chunks written into
+    one output, equal the JAX package's chunked signatures; no kernel
+    launches for CPU tensors."""
     bases, lengths = _reads(7, n=96)
     hash_ids = np.arange(4, dtype=np.uint32)
-    want_s, _ = jminhash.minhash_signatures_chunked(
+    want_s, want_v = jminhash.minhash_signatures_chunked(
         jnp.asarray(bases), jnp.asarray(lengths), 16, jnp.asarray(hash_ids),
-        32, canonical=False)
-    before = sigs_from_bases.launches
-    got_s, _ = minhash.minhash_signatures_chunked(
+        32, canonical=True)
+    before = (sigs_from_bases.launches, signature_stage.launches)
+    got_s, got_v = minhash.window_signatures(
         torch.from_numpy(bases), torch.from_numpy(lengths), 16,
-        torch.from_numpy(hash_ids.astype(np.int64)), 32, canonical=False)
+        torch.from_numpy(hash_ids.astype(np.int64)), False, 32)
     np.testing.assert_array_equal(got_s.numpy(),
                                   np.asarray(want_s).astype(np.int64))
-    assert sigs_from_bases.launches == before
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    assert (sigs_from_bases.launches, signature_stage.launches) == before
 
 
 def _kmer_lows(bases, k):
@@ -194,3 +198,106 @@ def test_sig_min_murmur_rejects_bad_shapes():
         sig_min_murmur(torch.zeros((2, 3), dtype=torch.int64),
                        torch.zeros(3, dtype=torch.int32), 16,
                        torch.zeros(1, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("k", [12, 15, 16])
+@pytest.mark.parametrize("space", ["3n", "3n_mirror", "canon", "fwd"])
+def test_signature_stage_plain_matches_jax(space, k):
+    """The fused stage's plain composition (what the CPU runs) against the
+    JAX functions it replaces: signatures_3n_pair (both mirrors) and
+    minhash_signatures (canonical and forward), lengths 0, k - 1, k, 100
+    and past the row."""
+    rng = np.random.default_rng(500 + k)
+    n, maxlen = 48, 112
+    bases = rng.integers(0, 4, size=(n, maxlen), dtype=np.int8)
+    lengths = rng.integers(0, maxlen + 1, size=n).astype(np.int32)
+    lengths[:5] = [0, k - 1, k, 100, maxlen + 9]
+    if space.startswith("3n"):
+        # the JAX CPU path reverse-complements over the raw length (only
+        # its TPU path clamps it): stay inside the row there
+        lengths = np.minimum(lengths, maxlen)
+    hash_ids = np.array([0, 1, 5, 2**32 - 1], dtype=np.uint32)
+    jb, jl, jh = (jnp.asarray(x) for x in (bases, lengths, hash_ids))
+    tb, tl = torch.from_numpy(bases), torch.from_numpy(lengths)
+    th = torch.from_numpy(hash_ids.astype(np.int64))
+    if space.startswith("3n"):
+        mirror = space == "3n_mirror"
+        want = jminhash.signatures_3n_pair(jb, jl, k, jh, mirror=mirror)
+        got = signature_stage_plain(tb, tl, k, th, "both",
+                                    "ga" if mirror else "ct", mirror)
+    else:
+        want = jminhash.minhash_signatures(jb, jl, k, jh,
+                                           canonical=space == "canon")
+        got = signature_stage_plain(tb, tl, k, th, space)
+    np.testing.assert_array_equal(got[0].numpy(),
+                                  np.asarray(want[0]).astype(np.int64))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    # the CPU wrapper is that composition, and launches nothing
+    before = signature_stage.launches
+    again = signature_stage(tb, tl, k, th, *(
+        ("both", "ga" if space == "3n_mirror" else "ct",
+         space == "3n_mirror") if space.startswith("3n") else (space,)))
+    assert signature_stage.launches == before
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+def test_signature_stage_pair_is_both_collapsed_forward_spaces():
+    """'pair' (the 3N index build's mode) is [fwd(CT(x)) | fwd(GA(x))],
+    halves swapped under mirror; `out` receives the result in place."""
+    bases, lengths = _reads(9, n=40, maxlen=50, k=12)
+    tb, tl = torch.from_numpy(bases), torch.from_numpy(lengths)
+    hid = torch.arange(5, dtype=torch.int64)
+    ct = minhash.minhash_signatures(encode.three_n_c_to_t(tb), tl, 12, hid,
+                                    canonical=False)
+    ga = minhash.minhash_signatures(encode.three_n_g_to_a(tb), tl, 12, hid,
+                                    canonical=False)
+    sig, valid = signature_stage(tb, tl, 12, hid, "pair")
+    assert torch.equal(sig, torch.cat([ct[0], ga[0]], dim=1))
+    assert torch.equal(valid, ct[1])
+    out = (torch.zeros((40, 10), dtype=torch.int64),
+           torch.zeros(40, dtype=torch.bool))
+    res = signature_stage(tb, tl, 12, hid, "pair", mirror=True, out=out)
+    assert res[0] is out[0]
+    assert torch.equal(out[0], torch.cat([ga[0], ct[0]], dim=1))
+
+
+@pytest.mark.parametrize("dtype", ["int64", "int32", "uint32"])
+def test_sig_min_murmur_plain_takes_each_word_type(dtype):
+    """The same k-mer words as int64 values, int32 bits or uint32 give the
+    JAX kernel's minima; a row near 0xFFFFFFFF against hash ids near
+    2**32 - 1 carries into the high word."""
+    k = 16
+    bases, lengths = _reads(600, n=128, maxlen=30, k=k)
+    kmers = _kmer_lows(bases, k)
+    kmers[5] = np.uint32(2**32 - 1) - np.arange(kmers.shape[1],
+                                                dtype=np.uint32)
+    hash_ids = np.array([0, 3, 2**32 - 2, 2**32 - 1], dtype=np.uint32)
+    want = np.asarray(minhash_pallas.sig_min_murmur(
+        jnp.asarray(kmers), jnp.asarray(lengths), k, jnp.asarray(hash_ids),
+        interpret=True)).astype(np.int64)
+    words = {"int64": lambda: torch.from_numpy(kmers.astype(np.int64)),
+             "int32": lambda: torch.from_numpy(kmers.view(np.int32).copy()),
+             "uint32": lambda: torch.from_numpy(kmers.copy())}[dtype]()
+    got = sig_min_murmur(words, torch.from_numpy(lengths), k,
+                         torch.from_numpy(hash_ids.astype(np.int64)))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("bad", [2**32, -1, 2**40])
+@pytest.mark.parametrize("wrapper", ["sigs_from_bases", "sig_min_murmur",
+                                     "signature_stage"])
+def test_wrappers_raise_on_a_hash_id_outside_u32(wrapper, bad):
+    """The hash relies on kmer + hash id < 2**33: an id outside
+    [0, 2**32) raises (on the card too: tests/test_torch_cuda.py)."""
+    hid = torch.tensor([0, bad], dtype=torch.int64)
+    lens = torch.full((2,), 20, dtype=torch.int32)
+    call = {"sigs_from_bases": lambda: sigs_from_bases(
+                torch.zeros((2, 20), dtype=torch.int8), lens, 16, hid),
+            "sig_min_murmur": lambda: sig_min_murmur(
+                torch.zeros((2, 5), dtype=torch.int64), lens, 16, hid),
+            "signature_stage": lambda: signature_stage(
+                torch.zeros((2, 20), dtype=torch.int8), lens, 16, hid)}
+    with pytest.raises(ValueError, match="hash ids must lie"):
+        call[wrapper]()
+    hid[1] = 2**32 - 1
+    call[wrapper]()

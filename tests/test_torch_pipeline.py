@@ -18,7 +18,8 @@ from hashreadmapper_tpu_torch import cli
 from hashreadmapper_tpu_torch.io.genome import Genome
 from hashreadmapper_tpu_torch.ops.bandtb_kernel import (fill_pass, shift_sub,
                                                         traceback)
-from hashreadmapper_tpu_torch.ops.minhash_kernel import sigs_from_bases
+from hashreadmapper_tpu_torch.ops.minhash_kernel import (signature_stage,
+                                                         sigs_from_bases)
 from hashreadmapper_tpu_torch.ops.shd_kernel import shd_best
 from hashreadmapper_tpu_torch.ops.swdev_kernel import (pass_batched, sw_forward,
                                                        sw_reverse)
@@ -29,9 +30,9 @@ from hashreadmapper_tpu_torch.pipeline.engine import CoarseMapper
 from torch_helpers import ACGT, ensure_reference_native, four_strand_reads
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = (sigs_from_bases, vote_candidates_fnc, shd_best, pass_batched,
-           sw_forward, sw_reverse,
-           shift_sub, fill_pass, traceback)
+KERNELS = (sigs_from_bases, signature_stage, vote_candidates_fnc, shd_best,
+           pass_batched, sw_forward, sw_reverse, shift_sub, fill_pass,
+           traceback)
 
 
 @pytest.fixture(scope="module")
