@@ -132,12 +132,24 @@ OPS_PER_SHD_WORD = {"alu": 3, "either": 1, "popc": 1}
 # running maximum of pre + j; h_main; two for e_new; the lazy-F max(corr -
 # j, h, 0); the column maximum.  The per-column work of a pair is left out.
 OPS_PER_SW_CELL = {"alu": 4}
-# An in-band cell of a fill pass: the score's select, the maxima of e, a,
-# f and h and the two scans' steps on the ALU, the gap and score adds on
-# either pipe; packing the direction and the run length adds 6 ALU
-# instructions and 2 adds
-OPS_PER_FILL_CELL = {"alu": 8, "either": 4}
-OPS_PER_FILL_CELL_EMIT = {"alu": 14, "either": 6}
+# An in-band cell of a fill pass: the arithmetic of bandtb._row_core for
+# one cell, with the gap runs as the recurrences they are (no scan steps,
+# band masks, moves or shared-memory traffic, which are the kernel's and
+# not the function's).  Scores: E = max(h_up - GO, e_up - GE) and F =
+# max(h_left - GO, f_left - GE), 4 adds and 2 maxima; the diagonal h_diag
+# + (ref == read ? MATCH : -MISMATCH), a compare, a select and an add;
+# max(E, 0), a = max(., diagonal), max(F, 0), h = max(a, .) and the row's
+# best, 5 maxima: 9 ALU and 5 adds.  Directions add 21 ALU and 5 adds: the
+# two gap directions (2 compares on the adds above); dh (a maximum, 2
+# compares, 2 selects and 2 adds); the M run (a compare, a select, an
+# add), the I and D runs (a select and an add each); the run length by dh
+# (2 compares, 3 selects), its cap (a minimum), dh | run << 3 (a shift and
+# an or) and the zero of a run that is not positive (a compare, a select).
+# The kernel issues more a cell, its scans, moves and shared-memory
+# traffic included: hashreadmapper_tpu_torch/tools/fill_ops.py counts
+# those from its SASS, and PERF.md reports them beside the bound.
+OPS_PER_FILL_CELL = {"alu": 9, "either": 5}
+OPS_PER_FILL_CELL_EMIT = {"alu": 30, "either": 10}
 
 
 def ops(n, per=None):
@@ -146,12 +158,18 @@ def ops(n, per=None):
     return {k: n * v for k, v in (per or {"alu": 1}).items()}
 
 
+def add_ops(*counts):
+    """The sum of instruction counts by pipe."""
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
 def hash_ops(hashes, kmers):
     """Instructions of `hashes` murmur hashes of `kmers` k-mers."""
-    out = ops(hashes, OPS_PER_HASH)
-    for k, v in ops(kmers, OPS_PER_KMER).items():
-        out[k] = out.get(k, 0) + v
-    return out
+    return add_ops(ops(hashes, OPS_PER_HASH), ops(kmers, OPS_PER_KMER))
 
 
 def log(*args):
@@ -854,58 +872,131 @@ def step2_cases(rng, dev):
             view=(lambda out: out.T) if pair_major else (lambda out: out),
             library=lambda padded=padded: torch.gather(padded, 0, src),
             bound=lambda out, x=x: (nbytes(x, begin, *out), ops(lq * p))))
+    return cases + bandtb_cases(dev, bandtb_inputs(dev))
+
+
+def bandtb_inputs(dev, seed=8):
+    """The pairs of the banded traceback's phase-1 cases: P = 8,192 indel
+    pairs (seed `seed`), their score rows (score1, bounds, need mask),
+    subregion codes as int32 [128, P] rows, the first band width bw0 =
+    |r - m| + 1, a widening of 1, 2 or 4 a pair and the fill's done mask
+    (the pairs that need no traceback and a quarter of the others).
+    tools/fill_compare.py takes the same."""
+    from hashreadmapper_tpu_torch.ops import bandtb_kernel as bk
+    from hashreadmapper_tpu_torch.ops import swdev
+    rng = np.random.default_rng(seed)
+    p, lq = 8192, 128
+    rc, rls, fc, fls = indel_pairs(rng, p)
+    read_t = torch.from_numpy(rc).to(dev).to(torch.int32).T.contiguous()
+    ref_t = torch.from_numpy(fc).to(dev).to(torch.int32).T.contiguous()
+    rl = torch.from_numpy(rls).to(dev)
+    fl = torch.from_numpy(fls).to(dev)
     s10 = swdev.ssw_score_packed_t(read_t, rl, ref_t, fl,
                                    (rl // 2).clamp(min=15), lq)
     qb, qe, rb, re = s10[6], s10[2], s10[5], s10[1]
     need = ~((s10[9] != 0) | (s10[8] != 0) | (s10[0] == 0) | (re < 0))
-    sub_q = bk.shift_sub(read_t, qb, lq)
-    sub_r = bk.shift_sub(ref_t, rb, lq)
     m, r = qe - qb + 1, re - rb + 1
     widen = torch.from_numpy(rng.choice([1, 2, 4], p).astype(np.int32))
-    bw = ((r - m).abs() + 1) * widen.to(dev)
     done = (~need | torch.from_numpy(
         rng.random(p) < 0.25).to(dev)).to(torch.int32)
+    return dict(p=p, lq=lq, read_t=read_t, ref_t=ref_t, s10=s10, qb=qb,
+                rb=rb, need=need, m=m, r=r, bw0=(r - m).abs() + 1,
+                widen=widen.to(dev), done=done,
+                sub_q=bk.shift_sub(read_t, qb, lq),
+                sub_r=bk.shift_sub(ref_t, rb, lq))
+
+
+def fill_cases(inp):
+    """(label, fill_pass arguments) of phase 1's fill_pass cases: bands
+    widened 1, 2 or 4 times, score only and emitting; first bands only,
+    int8 codes (mostly 8- and 16-lane segments); bands of at least 64
+    (2 bw + 1 > NL: absolute lanes)."""
+    a = inp
+    lq, bw0 = a["lq"], a["bw0"]
+    q8, r8 = a["sub_q"].to(torch.int8), a["sub_r"].to(torch.int8)
+    common = (a["m"], a["r"])
+    out = []
+    for label, q, ref, bw, emit in (
+            ("bands widened 1, 2 or 4 times, score only", a["sub_q"],
+             a["sub_r"], bw0 * a["widen"], False),
+            ("bands widened 1, 2 or 4 times, emitting", a["sub_q"],
+             a["sub_r"], bw0 * a["widen"], True),
+            ("first bands, int8 codes, score only", q8, r8, bw0, False),
+            ("bands of bw0 + 63 (absolute lanes), score only", a["sub_q"],
+             a["sub_r"], bw0 + 63, False)):
+        out.append((label, (q, ref, *common, bw, a["done"], lq, emit)))
+    return out
+
+
+def traceback_modes(inp):
+    """(label, arguments, keywords) of phase 1's traceback cases: the
+    pairs as pair-major uint8 rows (shift_sub of int8 codes), in the fused
+    mode (48 uint8 entries, runs cut at 63, the need mask) and the staged
+    one (64 int16 entries, every pair)."""
+    from hashreadmapper_tpu_torch.ops import bandtb_kernel as bk
+    lq = inp["lq"]
+    args = (bk.shift_sub(inp["read_t"].to(torch.int8), inp["qb"], lq, True),
+            bk.shift_sub(inp["ref_t"].to(torch.int8), inp["rb"], lq, True),
+            inp["m"], inp["r"], inp["s10"][0])
+    return [("fused: 48 uint8 entries, runs cut at 63, need mask", args,
+             dict(n_entries=48, need=inp["need"], run_cap=63,
+                  entry_dtype=torch.uint8)),
+            ("staged: 64 int16 entries, every pair", args,
+             dict(n_entries=64))]
+
+
+def cells_of(m, r, width, mask, lq):
+    """In-band cells of rows i < m at band width `width` (band [max(0, i
+    - width), min(r - 1, i + width)]), summed over the pairs of `mask`."""
+    i = torch.arange(lq, device=m.device)[None, :]
+    mm, rr, bb = (x.to(torch.int64)[:, None] for x in (m, r, width))
+    band = (torch.minimum(rr - 1, i + bb) - (i - bb).clamp(min=0)
+            + 1).clamp(min=0)
+    return int(torch.where((i < mm) & mask[:, None], band, 0).sum())
+
+
+def bandtb_cases(dev, inp):
+    """fill_pass (the cases of fill_cases) and the fused traceback (both
+    entry modes) at the fused path's shapes."""
+    from hashreadmapper_tpu_torch.ops import bandtb_kernel as bk
+    p, lq, s10 = inp["p"], inp["lq"], inp["s10"]
+    m, r, need, done = inp["m"], inp["r"], inp["need"], inp["done"]
     live = done == 0
     n_live = int(live.sum())
-    # the work of the pairs that are not done: in-band cells of rows i < m,
-    # band [max(0, i - bw), min(r - 1, i + bw)], OPS_PER_FILL_CELL a cell,
-    # OPS_PER_FILL_CELL_EMIT when it also packs the direction and the run
-    # length
-    i = torch.arange(lq, device=dev)[None, :]
-
-    def cells_of(width, mask):
-        """In-band cells of rows i < m at band width `width`, summed over
-        the pairs of `mask`."""
-        mm, rr, bb = (x.to(torch.int64)[:, None] for x in (m, r, width))
-        band = (torch.minimum(rr - 1, i + bb) - (i - bb).clamp(min=0)
-                + 1).clamp(min=0)
-        return int(torch.where((i < mm) & mask[:, None], band, 0).sum())
-    band_cells = cells_of(bw, live)
+    cases = []
 
     def view(out):
         # the kernel never writes a done pair's directions
         best, dirs = out
         return best if dirs is None else (best, dirs[live])
 
-    def fill_bound(out, emit):
-        pair_bytes = 4 * (lq + lq) + (2 * lq * lq if emit else 0)
-        return (nbytes(m, r, bw, done, out[0]) + n_live * pair_bytes,
-                ops(band_cells, OPS_PER_FILL_CELL_EMIT if emit
-                    else OPS_PER_FILL_CELL))
-    for emit in (False, True):
-        args = (sub_q, sub_r, m, r, bw, done, lq, emit)
+    def fill_bound(out, args):
+        """Each input read once: the scalars, and of each pair not done
+        the codes its rows need (read rows i < m, ref positions j <
+        min(r, NL)); best and, when emitting, the pair's [m_max, NL]
+        directions written once (the bytes the kernel stores: it writes
+        no done pair's).  The in-band cells of rows i < m,
+        OPS_PER_FILL_CELL a cell or OPS_PER_FILL_CELL_EMIT."""
+        q, _, _, _, bw, _, _, emit = args
+        codes = int((m.clamp(0, lq) + r.clamp(0, lq))[live].sum())
+        moved = (nbytes(m, r, bw, done, out[0]) + codes * q.element_size()
+                 + (n_live * 2 * lq * lq if emit else 0))
+        return moved, ops(cells_of(m, r, bw, live, lq),
+                          OPS_PER_FILL_CELL_EMIT if emit
+                          else OPS_PER_FILL_CELL)
+    for label, args in fill_cases(inp):
         cases.append(dict(key="fill_pass", name="fill_pass",
-                          shape=f"P={p} m_max=NL={lq} emit_dirs={emit}, "
-                                f"{n_live} pairs not done",
+                          shape=f"P={p} m_max=NL={lq} {label}, {n_live} "
+                                "pairs not done",
                           kernel=lambda a=args: bk.fill_pass(*a),
                           plain=lambda a=args: bk.fill_pass_plain(*a),
                           view=view,
-                          bound=lambda out, e=emit: fill_bound(out, e)))
+                          bound=lambda out, a=args: fill_bound(out, a)))
 
     # the whole traceback in one launch, both entry modes
-    sub_q8 = bk.shift_sub(read_t8, qb, lq, True)
-    sub_r8 = bk.shift_sub(ref_t.to(torch.int8), rb, lq, True)
-    bw0 = (r - m).abs() + 1
+    modes = traceback_modes(inp)
+    sub_q8, sub_r8 = modes[0][1][:2]
+    bw0 = inp["bw0"]
 
     def tb_bound(out, run):
         """The same work whatever implements it: codes of the pairs that
@@ -921,12 +1012,11 @@ def step2_cases(rng, dev):
                  + n_run * (lq + lq))
         plain, emit, width = 0, 0, bw0.clone()
         for _ in range(bk.n_band_passes(lq, lq) + 1):
-            plain += cells_of(width, run & (width < bw_f))
-            emit += cells_of(width, run & (width == bw_f))
+            plain += cells_of(m, r, width, run & (width < bw_f), lq)
+            emit += cells_of(m, r, width, run & (width == bw_f), lq)
             width = width * 2
-        return moved, {k: ops(plain, OPS_PER_FILL_CELL).get(k, 0)
-                       + ops(emit, OPS_PER_FILL_CELL_EMIT).get(k, 0)
-                       for k in ("alu", "either")}
+        return moved, add_ops(ops(plain, OPS_PER_FILL_CELL),
+                              ops(emit, OPS_PER_FILL_CELL_EMIT))
 
     def tb_note(kw):
         def note(out):
@@ -946,12 +1036,7 @@ def step2_cases(rng, dev):
                     f"{peak} B allocated by the call (a [P, m_max, NL] "
                     f"int16 array would be {2 * p * lq * lq} B)")
         return note
-    for mode, kw in (
-            ("fused: 48 uint8 entries, runs cut at 63, need mask",
-             dict(n_entries=48, need=need, run_cap=63,
-                  entry_dtype=torch.uint8)),
-            ("staged: 64 int16 entries, every pair", dict(n_entries=64))):
-        args = (sub_q8, sub_r8, m, r, s10[0])
+    for mode, args, kw in modes:
         run = kw.get("need", torch.ones_like(live))
         cases.append(dict(
             key="traceback", name="traceback",

@@ -32,6 +32,7 @@ import platform
 import shutil
 import subprocess
 import threading
+import weakref
 
 import torch
 
@@ -70,8 +71,9 @@ _SIGNATURES = {
                        _I, _P],
     # x, sh, out, l, p, size, mask, elem_bytes, pair_major, stream
     "hrm_shift_sub": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # read_t, ref_t, m, r, bw, done, best, dirs, p, m_max, nl, emit, stream
-    "hrm_fill_pass": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # read_t, read_stride, ref_t, ref_stride, elem_bytes, m, r, bw, done,
+    # best, dirs, p, m_max, nl, emit, stream
+    "hrm_fill_pass": [_P, _I, _P, _I, _I] + [_P] * 6 + [_I] * 4 + [_P],
     # read_s, ref_s, m, r, score1, need, entries, status, bw, scratch,
     # counters, p, m_max, nl, n_entries, run_cap, entry_bytes, n_passes,
     # smem_cells, blocks, stream
@@ -248,6 +250,34 @@ def stream(t: torch.Tensor) -> int:
     handle: building a torch.cuda.Stream object for it costs the host
     about as much as a launch)."""
     return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+# CUDA tensors whose range check_range has passed, by id: (weak
+# reference, version)
+_checked = {}
+
+
+def check_range(name: str, what: str, t: torch.Tensor, lo: int,
+                hi: int) -> None:
+    """Raise unless every value of t lies in [lo, hi] (where a kernel
+    narrows what its plain version keeps whole).  A CUDA tensor is read
+    back once per version of it, not at every call."""
+    if t.numel() == 0:
+        return
+    cuda = t.device.type == "cuda"
+    key = (id(t), lo, hi)
+    if cuda and key in _checked:
+        ref, version = _checked[key]
+        if ref() is t and version == t._version:
+            return
+    vals = t.to(torch.int64)
+    got_lo, got_hi = int(vals.min()), int(vals.max())
+    if got_lo < lo or got_hi > hi:
+        raise ValueError(f"{name}: {what} must lie in [{lo}, {hi}], got "
+                         f"[{got_lo}, {got_hi}]")
+    if cuda:
+        _checked[key] = (weakref.ref(
+            t, lambda _, k=key: _checked.pop(k, None)), t._version)
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:

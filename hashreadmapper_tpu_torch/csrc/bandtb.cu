@@ -27,22 +27,44 @@
 //   h      = max(a, max(f, 0)),  best = max over in-band cells of h
 // and, when emitting, the direction dh with the oracle's tie rules and
 // the full run length the walk takes from the cell (M chain D2, vertical
-// I chain J, in-row D chain K from a second cummax), packed as int16
+// I chain J, in-row D chain K from a second scan), packed as int16
 // dh | min(run, 4095) << 3 into dirs[p, i, j].  Rows m..m_max-1 of an
 // emitting pass are written 0; a pair with done set writes best 0 and no
-// directions.  One warp per pair, K = ceil(NL / 32) consecutive ref
-// lanes per thread, the row above in registers, neighbours by shuffle.
-// It is the single-pass counterpart of the TPU kernel; the main path
-// runs the traceback kernel below, which shares its row (band_row).
-//
+// directions.  What bounds it on the card: the latency of the row loop.
+// A row depends on the row above through a chain of shuffles (the
+// neighbours and the log2-step scans) and dependent selects, a few
+// hundred cycles, so a launch takes at least the rows of its heaviest
+// pair times that; the bytes (the direction array when emitting) come
+// second.  The design cuts the lanes and the chain a row needs:
+//   - band-relative lanes (cell c of row i is ref position i - bw + c)
+//     wherever the band's 2 bw + 1 cells fit fewer lanes than NL; absolute
+//     lanes only past that;
+//   - narrow pairs share a warp: 2 bw + 1 <= 8 takes an 8-lane segment
+//     (four pairs a warp), <= 16 a 16-lane one (two), and every shuffle,
+//     scan and reduction stays in its segment (CUDA's width argument);
+//   - each scan is exclusive and takes log2(segment) shuffles (the
+//     window a lane receives at each step of the inclusive scan is the
+//     exclusive prefix), so the in-row gap needs no shifted copy of a;
+//   - a block stages the codes of a tile of 32 adjacent pairs once into
+//     shared memory (16-byte loads of int8 or int32 codes as they come,
+//     only the loads that hold a pair not done), and the next row's codes
+//     are loaded while a row runs;
+//   - the block's warps pull the tile's units (a wide pair, two 16-lane
+//     or four 8-lane pairs) from a counter in shared memory, widest class
+//     first, then, emitting, the zero rows m..m_max-1 a pair at a time,
+//     so no unit waits on them;
+//   - a row's directions leave in whole lines: absolute lanes store their
+//     cells as one 8- or 16-byte store a lane; band-relative ones put the
+//     band into a zeroed row of shared memory that the segment copies out
+//     with 16-byte stores, zeroing it as it reads.
 // traceback replaces the same _fill_pallas together with the two scans
 // around it in bandtb._tb_core_t (the band-doubling scan and the
 // run-length walk): per pair, passes at band width bw = |r - m| + 1,
 // doubled until best >= score1 or 2 * bw > max(m, r); the directions of
 // the final width; the walk over them into at most n_entries entries
 // op | len << 2, status 0 / 1 (failed) / 2 (entry budget exceeded).
-// What bounds it: the latency of the row loop (a row is two 5-step
-// shuffle scans and a dozen more shuffles, rows depend on each other),
+// What bounds it: the latency of the row loop (a row is two exclusive
+// shuffle scans and a few more shuffles, rows depend on each other),
 // not bytes (a pair reads 2 * 128 code bytes and writes under 150) and
 // not operations.  The design therefore cuts rows x passes x lanes and
 // keeps everything on the chip:
@@ -82,6 +104,12 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kTilePairs = 32;       // pairs a shift_sub block owns
 constexpr int kShiftThreads = 256;
 constexpr int kTbThreads = 128;      // 4 warps, a pair each, per block
+constexpr int kFillPairs = 32;       // pairs a fill block owns
+constexpr int kFillWarps = 8;
+constexpr int kFillThreads = 32 * kFillWarps;
+constexpr int kFillSegs = 4;         // row slots a fill warp: 8-lane segments
+
+__device__ __forceinline__ int round16(int n) { return (n + 15) & ~15; }
 
 // element q (pair c + q of the tile row) of one 16-byte load
 template <typename T>
@@ -154,255 +182,668 @@ shift_sub_kernel(const T* __restrict__ x, const int32_t* __restrict__ sh,
   }
 }
 
-// out[q] = value of cell - 1 for the K cells lane*K + q of this thread:
-// the thread's previous cell, or the last cell of thread lane-1 (fill
-// for lane 0)
-template <int K>
+// The warp's lanes in segments of S (8, 16 or 32) lanes, sl = lane % S;
+// a segment is one pair's row and every shuffle stays inside it.
+//
+// out[q] = value of cell - 1 for the K cells sl*K + q of this thread:
+// the thread's previous cell, or the last cell of lane sl-1 (fill for
+// sl 0)
+template <int S, int K>
 __device__ __forceinline__ void left_of(const int (&v)[K], int (&out)[K],
-                                        int lane, int fill) {
-  const int carry = __shfl_up_sync(kFull, v[K - 1], 1);
-  out[0] = lane == 0 ? fill : carry;
+                                        int sl, int fill) {
+  const int carry = __shfl_up_sync(kFull, v[K - 1], 1, S);
+  out[0] = sl == 0 ? fill : carry;
 #pragma unroll
   for (int q = 1; q < K; ++q) out[q] = v[q - 1];
 }
 
-// out[q] = value of cell + 1 (fill past the last cell of lane 31)
-template <int K>
+// out[q] = value of cell + 1 (fill past the last cell of lane S-1)
+template <int S, int K>
 __device__ __forceinline__ void right_of(const int (&v)[K], int (&out)[K],
-                                         int lane, int fill) {
-  const int carry = __shfl_down_sync(kFull, v[0], 1);
+                                         int sl, int fill) {
+  const int carry = __shfl_down_sync(kFull, v[0], 1, S);
 #pragma unroll
   for (int q = 0; q + 1 < K; ++q) out[q] = v[q + 1];
-  out[K - 1] = lane == 31 ? fill : carry;
+  out[K - 1] = sl == S - 1 ? fill : carry;
 }
 
-// inclusive max-scan over the warp's 32*K cells, in place
-template <int K>
-__device__ __forceinline__ void cummax(int (&v)[K], int lane) {
+// exclusive max-scan over the segment's S*K cells, in place: v[q] = the
+// maximum of the cells before it, -kBig before the first.  At each step
+// of the lanes' inclusive scan a lane receives the window of lanes just
+// below those it holds, so the same log2(S) shuffles give the exclusive
+// prefix.
+template <int S, int K>
+__device__ __forceinline__ void cummax_excl(int (&v)[K], int sl) {
+  int p[K];
+  p[0] = v[0];
 #pragma unroll
-  for (int q = 1; q < K; ++q) v[q] = max(v[q], v[q - 1]);
-  int x = v[K - 1];
+  for (int q = 1; q < K; ++q) p[q] = max(p[q - 1], v[q]);
+  int x = p[K - 1];
+  int ex = -kBig;
 #pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int o = __shfl_up_sync(kFull, x, d);
-    if (lane >= d) x = max(x, o);
+  for (int d = 1; d < S; d <<= 1) {
+    const int o = __shfl_up_sync(kFull, x, d, S);
+    if (sl >= d) {
+      x = max(x, o);
+      ex = max(ex, o);
+    }
   }
-  int excl = __shfl_up_sync(kFull, x, 1);
-  if (lane == 0) excl = -kBig;
+  v[0] = ex;
 #pragma unroll
-  for (int q = 0; q < K; ++q) v[q] = max(v[q], excl);
+  for (int q = 1; q < K; ++q) v[q] = max(ex, p[q - 1]);
 }
 
+template <int S = 32>
 __device__ __forceinline__ int warp_max(int v) {
 #pragma unroll
-  for (int d = 16; d > 0; d >>= 1)
-    v = max(v, __shfl_xor_sync(kFull, v, d));
+  for (int d = S / 2; d > 0; d >>= 1)
+    v = max(v, __shfl_xor_sync(kFull, v, d, S));
   return v;
 }
 
-// Row i of bandtb._row_core over the warp's 32*K cells.  Cell lane*K + q
-// is ref position j = o + lane*K + q with code ref[q].  kRel: o = i - bw
-// (band-relative cells; the row above had o - 1, so its cell of the same
-// index is the diagonal neighbour and the next cell the upper one); else
-// o = 0 for every row (the same cell is the upper neighbour, the cell
-// before it the diagonal one).  h, e, d2, jj carry the row above in and
-// this row out: 0 outside the band, jj kPoison there.  kEmit: packed[q] =
-// dh | run << 3, 0 outside the band.
-template <int K, bool kRel, bool kEmit>
-__device__ __forceinline__ void band_row(int i, int o, int rd,
-                                         const int (&ref)[K], int r, int bw,
-                                         int nl, int lane, int (&h)[K],
-                                         int (&e)[K], int (&d2)[K],
-                                         int (&jj)[K], int& best,
-                                         int (&packed)[K]) {
+// What row_emit needs of a row's scores: e1 = max(e, 0), the direction
+// bits de = (h_up - GO > e_up - GE) of the cells (bit q), t2 = diagonal +
+// score, f and h before the band mask.
+template <int K>
+struct RowVals {
+  int e1[K], t2[K], f[K], hh[K];
+  unsigned de;
+};
+
+// Row i of bandtb._row_core over the segment's S*K cells (lane = the
+// lane in the segment), scores only.  Cell lane*K + q is ref position j =
+// o + lane*K + q with code ref[q].  kRel: o = i - bw (band-relative
+// cells; the row above had o - 1, so its cell of the same index is the
+// diagonal neighbour and the next cell the upper one); else o = 0 for
+// every row (the same cell is the upper neighbour, the cell before it the
+// diagonal one).  h and e carry the row above in and this row out, 0
+// outside the band.  The in-row gap takes one exclusive scan: bandtb's
+// f[j] = max(cummax(max(a[j - 1], 0) - GO + j) - j, beg - 1 - j) is
+// max(u[j] - j, beg - 1 - j) with u[j] the maximum over beg <= k < j of
+// max(a[k], 0) - GO + k + 1 (its start, beg - GO, never exceeds beg - 1).
+template <int S, int K, bool kRel>
+__device__ __forceinline__ void row_score(int i, int o, int rd,
+                                          const int (&ref)[K], int r, int bw,
+                                          int nl, int lane, int (&h)[K],
+                                          int (&e)[K], int& best,
+                                          RowVals<K>& w) {
   const int beg = max(0, i - bw);
   const int end_j = min(min(r, nl) - 1, i + bw);
-  int h_up[K], e_up[K], j_up[K], hd[K], d2_diag[K];
+  int h_up[K], e_up[K], hd[K];
   if (kRel) {
-    right_of<K>(h, h_up, lane, 0);
-    right_of<K>(e, e_up, lane, 0);
-    if (kEmit) right_of<K>(jj, j_up, lane, kPoison);
+    right_of<S, K>(h, h_up, lane, 0);
+    right_of<S, K>(e, e_up, lane, 0);
 #pragma unroll
-    for (int q = 0; q < K; ++q) {
-      hd[q] = h[q];
-      d2_diag[q] = d2[q];
-    }
+    for (int q = 0; q < K; ++q) hd[q] = h[q];
   } else {
-    left_of<K>(h, hd, lane, 0);
-    if (kEmit) left_of<K>(d2, d2_diag, lane, 0);
+    left_of<S, K>(h, hd, lane, 0);
 #pragma unroll
     for (int q = 0; q < K; ++q) {
       h_up[q] = h[q];
       e_up[q] = e[q];
-      j_up[q] = jj[q];
     }
   }
-
-  int t1e[K], t2e[K], e_cur[K], e1[K], t2[K], a[K];
+  int e_cur[K], a[K], u[K];
+  w.de = 0;
 #pragma unroll
   for (int q = 0; q < K; ++q) {
     const int j = o + lane * K + q;
     const bool in_up = j <= i - 1 + bw;
-    t1e[q] = (in_up ? h_up[q] : 0) - kGapOpen;
-    t2e[q] = (in_up ? e_up[q] : 0) - kGapExtend;
-    e_cur[q] = max(t1e[q], t2e[q]);
-    e1[q] = max(e_cur[q], 0);
+    const int t1e = (in_up ? h_up[q] : 0) - kGapOpen;
+    const int t2e = (in_up ? e_up[q] : 0) - kGapExtend;
+    if (t1e > t2e) w.de |= 1u << q;
+    e_cur[q] = max(t1e, t2e);
+    w.e1[q] = max(e_cur[q], 0);
     const int s = (ref[q] == rd && ref[q] < 4) ? kMatch : -kMismatch;
-    t2[q] = (j == beg ? 0 : hd[q]) + s;
-    a[q] = max(e1[q], t2[q]);
+    w.t2[q] = (j == beg ? 0 : hd[q]) + s;
+    a[q] = max(w.e1[q], w.t2[q]);
+    u[q] = j >= beg ? max(a[q], 0) + (j + 1 - kGapOpen) : -kBig;
   }
-  int am1[K], run[K];
-  left_of<K>(a, am1, lane, 0);
+  cummax_excl<S, K>(u, lane);
 #pragma unroll
   for (int q = 0; q < K; ++q) {
     const int j = o + lane * K + q;
-    const bool inb = j >= beg && j <= end_j;
-    run[q] = inb ? max(j == beg ? 0 : am1[q], 0) - kGapOpen + j : -kBig;
+    w.f[q] = max(u[q] - j, beg - 1 - j);
+    w.hh[q] = max(a[q], max(w.f[q], 0));
+    const bool ok = j >= beg && j <= end_j;
+    h[q] = ok ? w.hh[q] : 0;
+    e[q] = ok ? e_cur[q] : 0;
+    best = max(best, h[q]);
   }
-  cummax<K>(run, lane);
-  int f[K], f1[K], hh[K];
-#pragma unroll
-  for (int q = 0; q < K; ++q) {
-    const int j = o + lane * K + q;
-    f[q] = max(run[q] - j, beg - 1 - j);
-    f1[q] = max(f[q], 0);
-    hh[q] = max(a[q], f1[q]);
-  }
+}
 
-  if (!kEmit) {
+// The directions of row i from its scores w: packed[q] = dh | run << 3, 0
+// outside the band, with the oracle's tie rules and the full run length
+// the walk takes from the cell (M chain D2, vertical I chain J, in-row D
+// chain K from an exclusive scan).  d2 and jj carry the row above in and
+// this row out: 0 and kPoison outside the band.
+template <int S, int K, bool kRel>
+__device__ __forceinline__ void row_emit(int i, int o, int r, int bw, int nl,
+                                         int lane, const RowVals<K>& w,
+                                         int (&d2)[K], int (&jj)[K],
+                                         int (&packed)[K]) {
+  const int beg = max(0, i - bw);
+  const int end_j = min(min(r, nl) - 1, i + bw);
+  int j_up[K], d2_diag[K];
+  if (kRel) {
+    right_of<S, K>(jj, j_up, lane, kPoison);
 #pragma unroll
-    for (int q = 0; q < K; ++q) {
-      const int j = o + lane * K + q;
-      const bool ok = j >= beg && j <= end_j;
-      h[q] = ok ? hh[q] : 0;
-      e[q] = ok ? e_cur[q] : 0;
-      if (ok) best = max(best, hh[q]);
-    }
-    return;
+    for (int q = 0; q < K; ++q) d2_diag[q] = d2[q];
+  } else {
+    left_of<S, K>(d2, d2_diag, lane, 0);
+#pragma unroll
+    for (int q = 0; q < K; ++q) j_up[q] = jj[q];
   }
-
   int hm1[K], fm1[K];
-  left_of<K>(hh, hm1, lane, 0);
-  left_of<K>(f, fm1, lane, 0);
+  left_of<S, K>(w.hh, hm1, lane, 0);
+  left_of<S, K>(w.f, fm1, lane, 0);
   int dh[K], d2n[K], jjn[K], z[K];
 #pragma unroll
   for (int q = 0; q < K; ++q) {
     const int j = o + lane * K + q;
     const bool inb = j >= beg && j <= end_j;
     const bool at_beg = j == beg;
-    const int de = t1e[q] > t2e[q] ? 1 : 0;
+    const int de = (w.de >> q) & 1;
     const int h_l = at_beg ? 0 : hm1[q];
     const int f_l = at_beg ? 0 : fm1[q];
     const int df = h_l - kGapOpen > f_l - kGapExtend ? 1 : 0;
-    const int t1h = max(e1[q], f1[q]);
-    dh[q] = t1h <= t2[q] ? 1 : (e1[q] > f1[q] ? 2 + de : 4 + df);
+    const int f1 = max(w.f[q], 0);
+    const int t1h = max(w.e1[q], f1);
+    dh[q] = t1h <= w.t2[q] ? 1 : (w.e1[q] > f1 ? 2 + de : 4 + df);
     const int dg = at_beg ? 0 : d2_diag[q];
     d2n[q] = dh[q] == 1 ? 1 + max(dg, 0) : 0;
     jjn[q] = inb ? (de == 0 ? 1 + j_up[q] : 1) : kPoison;
-    int w = df == 1 ? 2 * j : -kBig;
-    if (at_beg && df == 0) w = beg > 0 ? 2 * j - 1 : 0;
-    z[q] = inb ? w : -kBig;
+    int v = df == 1 ? 2 * j : -kBig;
+    if (at_beg && df == 0) v = beg > 0 ? 2 * j - 1 : 0;
+    z[q] = inb ? v : -kBig;
   }
-  cummax<K>(z, lane);
-  int kk[K], km1[K];
-#pragma unroll
-  for (int q = 0; q < K; ++q) {
-    const int j = o + lane * K + q;
-    kk[q] = (z[q] & 1) ? kPoison : j - (z[q] >> 1) + 1;
-  }
-  left_of<K>(kk, km1, lane, kPoison);
+  // z[q] becomes the doubled position of the last D reset before cell j
+  // (odd: the run crossed the band's start); K of cell j - 1 follows
+  cummax_excl<S, K>(z, lane);
 #pragma unroll
   for (int q = 0; q < K; ++q) {
     const int j = o + lane * K + q;
     const bool ok = j >= beg && j <= end_j;
-    const int k_l = j == beg ? kPoison : km1[q];
+    const int k_l = (j == beg || (z[q] & 1)) ? kPoison : j - (z[q] >> 1);
     int rl = dh[q] == 1 ? d2n[q]
            : dh[q] == 2 ? 1 + j_up[q]
            : dh[q] == 4 ? 1 + k_l : 1;
     rl = min(max(rl, 0), kRunMax);
     packed[q] = (ok && rl > 0) ? (dh[q] | (rl << 3)) : 0;
-    h[q] = ok ? hh[q] : 0;
-    e[q] = ok ? e_cur[q] : 0;
     d2[q] = ok ? d2n[q] : 0;
     jj[q] = ok ? jjn[q] : kPoison;
-    if (ok) best = max(best, hh[q]);
   }
 }
 
-template <int K, bool kEmit>
-__global__ void fill_kernel(const int32_t* __restrict__ read_t,
-                            const int32_t* __restrict__ ref_t,
-                            const int32_t* __restrict__ m_a,
-                            const int32_t* __restrict__ r_a,
-                            const int32_t* __restrict__ bw_a,
-                            const int32_t* __restrict__ done_a,
-                            int32_t* __restrict__ best_out,
-                            int16_t* __restrict__ dirs, int p_total,
-                            int m_max, int nl) {
-  const int p = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (p >= p_total) return;                 // whole warps only
-  if (done_a[p]) {
-    if (lane == 0) best_out[p] = 0;
+// Row i of bandtb._row_core: the scores and, kEmit, the directions.
+template <int S, int K, bool kRel, bool kEmit>
+__device__ __forceinline__ void band_row(int i, int o, int rd,
+                                         const int (&ref)[K], int r, int bw,
+                                         int nl, int lane, int (&h)[K],
+                                         int (&e)[K], int (&d2)[K],
+                                         int (&jj)[K], int& best,
+                                         int (&packed)[K]) {
+  RowVals<K> w;
+  row_score<S, K, kRel>(i, o, rd, ref, r, bw, nl, lane, h, e, best, w);
+  if (kEmit) row_emit<S, K, kRel>(i, o, r, bw, nl, lane, w, d2, jj, packed);
+}
+
+// ---- fill_pass ----------------------------------------------------------
+
+// Codes [rows, P] of T (row stride `stride` elements) of the block's tile
+// of kFillPairs pairs into dst[pair * dst_stride + row] as int8 (int32
+// codes of the int8 range: the wrapper checks); only the loads that hold
+// a live pair.  vec: the rows' start and stride are
+// 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ void stage_codes(const T* __restrict__ src,
+                                            int stride, int vec, int rows,
+                                            int8_t* dst, int dst_stride,
+                                            int p0, int valid,
+                                            unsigned live) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));
+  constexpr int kVecRow = kFillPairs / kPer;
+  for (int v = threadIdx.x; v < rows * kVecRow; v += kFillThreads) {
+    const int t = v / kVecRow;
+    const int c = (v % kVecRow) * kPer;
+    if (((live >> c) & ((1u << kPer) - 1)) == 0) continue;
+    const T* row = src + static_cast<size_t>(t) * stride + p0 + c;
+    if (vec && c + kPer <= valid) {
+      const int4 w = *reinterpret_cast<const int4*>(row);
+#pragma unroll
+      for (int q = 0; q < kPer; ++q)
+        dst[(c + q) * dst_stride + t] = static_cast<int8_t>(vec_elem<T>(w, q));
+    } else {
+      for (int q = 0; q < kPer && c + q < valid; ++q)
+        dst[(c + q) * dst_stride + t] = static_cast<int8_t>(row[q]);
+    }
+  }
+}
+
+// n-th set bit of mask (from 0), -1 past the last: a binary search on
+// the halves' popcounts
+__device__ __forceinline__ int nth_set(unsigned mask, int n) {
+  if (n >= __popc(mask)) return -1;
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const unsigned low = mask & ((1u << w) - 1);
+    const int c = __popc(low);
+    if (n >= c) {
+      n -= c;
+      mask >>= w;
+      pos += w;
+    } else {
+      mask = low;
+    }
+  }
+  return pos;
+}
+
+// count int16 zeros from dst by the S lanes of a segment (16-byte stores
+// when vec: dst 16-byte aligned, count a multiple of 8)
+template <int S>
+__device__ __forceinline__ void zero_cells(int16_t* dst, size_t count,
+                                           int vec, int sl) {
+  if (vec) {
+    int4* d = reinterpret_cast<int4*>(dst);
+    for (size_t k = sl; k < count / 8; k += S) d[k] = make_int4(0, 0, 0, 0);
+  } else {
+    for (size_t k = sl; k < count; k += S) dst[k] = 0;
+  }
+}
+
+struct FillArgs {
+  const int32_t* m;
+  const int32_t* r;
+  const int32_t* bw;
+  int32_t* best;
+  int16_t* dirs;
+  const int8_t* rd_tile;     // [kFillPairs][sr] read codes of the tile
+  const int8_t* rf_tile;     // [kFillPairs][sf] ref codes
+  int16_t* slots;            // the warp's kFillSegs rows of directions
+  int p0, m_max, nl, sr, sf, rows_f, bstride, vec_d;
+};
+
+// A segment's row slot to its row out of dst when the row is below m,
+// the slot zeroed as it is read (16-byte loads, stores and zeroing when
+// vec).  The whole warp calls it, so that it syncs in step.
+template <int S>
+__device__ __forceinline__ void flush_row(int16_t* slot, int16_t* out,
+                                          bool below_m, int nl, int vec,
+                                          int sl) {
+  __syncwarp();
+  if (below_m) {
+    if (vec) {
+      for (int v = sl; v < nl / 8; v += S) {
+        int4* s4 = reinterpret_cast<int4*>(slot) + v;
+        const int4 x = *s4;
+        *s4 = make_int4(0, 0, 0, 0);
+        reinterpret_cast<int4*>(out)[v] = x;
+      }
+    } else {
+      for (int v = sl; v < nl; v += S) {
+        out[v] = slot[v];
+        slot[v] = 0;
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// A lane's K cells of a row of directions straight to dst (absolute
+// lanes: the warp's cells cover the row): one 4-, 8- or 16-byte store
+// when vec (NL a multiple of 8, so the cells are aligned).
+template <int K>
+__device__ __forceinline__ void store_cells(int16_t* dst, const int (&v)[K],
+                                            int sl, int nl, int vec) {
+  const int j0 = sl * K;
+  if (K > 1 && vec && j0 + K <= nl) {
+    int w[(K + 1) / 2];
+#pragma unroll
+    for (int q = 0; q < K / 2; ++q)
+      w[q] = (v[2 * q] & 0xffff) | (v[2 * q + 1] << 16);
+    if constexpr (K == 8)
+      *reinterpret_cast<int4*>(dst + j0) = make_int4(w[0], w[1], w[2], w[3]);
+    else if constexpr (K == 4)
+      *reinterpret_cast<int2*>(dst + j0) = make_int2(w[0], w[1]);
+    else if constexpr (K == 2)
+      *reinterpret_cast<int*>(dst + j0) = w[0];
+  } else {
+#pragma unroll
+    for (int q = 0; q < K; ++q)
+      if (j0 + q < nl) dst[j0 + q] = static_cast<int16_t>(v[q]);
+  }
+}
+
+// The directions of row i (below m) from its scores: absolute lanes store
+// the whole row at once; band-relative ones put the band's non-zero cells
+// into the segment's zeroed row slot and store the slot.
+template <int S, int K, bool kRel>
+__device__ __forceinline__ void emit_row(const FillArgs& a, int i, int m,
+                                         int r, int bw, int sl,
+                                         const RowVals<K>& w, int (&d2)[K],
+                                         int (&jj)[K], int16_t* slot,
+                                         int16_t* out) {
+  const int o = kRel ? i - bw : 0;
+  int packed[K];
+  row_emit<S, K, kRel>(i, o, r, bw, a.nl, sl, w, d2, jj, packed);
+  if (!kRel) {
+    if (i < m)
+      store_cells<K>(out + static_cast<size_t>(i) * a.nl, packed, sl, a.nl,
+                     a.vec_d);
     return;
   }
-  const size_t P = static_cast<size_t>(p_total);
-  const int m = min(m_a[p], m_max);
-  const int r = r_a[p];
-  const int bw = bw_a[p];
+  if (i < m) {
+#pragma unroll
+    for (int q = 0; q < K; ++q)
+      if (packed[q] != 0)
+        slot[o + sl * K + q] = static_cast<int16_t>(packed[q]);
+  }
+  flush_row<S>(slot, out + static_cast<size_t>(i) * a.nl, i < m, a.nl,
+               a.vec_d, sl);
+}
 
-  int ref[K], h[K], e[K], d2[K], jj[K], packed[K];
+// The codes of row i: the read's, and the ref's of the lane's cells
+// (band-relative: they move with the row; absolute: loaded once)
+template <int K, bool kRel>
+__device__ __forceinline__ void row_codes(const int8_t* rd_s,
+                                          const int8_t* rf_s, int i, int o,
+                                          int rows, int rows_f, int sl,
+                                          int& rd, int (&ref)[K]) {
+  rd = i < rows ? rd_s[i] : 4;
+  if (kRel) {
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      const int j = o + sl * K + q;
+      ref[q] = (j >= 0 && j < rows_f) ? rf_s[j] : 4;
+    }
+  }
+}
+
+// The pass of the pairs of one unit, the whole warp in step: segment
+// lane / S takes the pair of rank rank0 + lane / S in mask (none past the
+// last).  Every lane takes part in the shuffles up to the largest m of
+// the warp; a segment past its own m keeps its best and emits nothing.
+// The codes of the next row are loaded while a row runs.  kEmit: a row's
+// directions go through the segment's row slot in shared memory
+// (zero outside the band) to 16-byte stores of whole rows, or straight
+// from the lanes (absolute lanes); rows m..m_max-1 are the kernel's.
+template <int S, int K, bool kRel, bool kEmit>
+__device__ __forceinline__ void fill_unit(const FillArgs& a, unsigned mask,
+                                          int rank0, int lane) {
+  const int sl = lane % S;
+  const int seg = lane / S;
+  const int pair = nth_set(mask, rank0 + seg);
+  int m = 0, r = 0, bw = 0;
+  if (pair >= 0) {
+    const int p = a.p0 + pair;
+    m = max(min(a.m[p], a.m_max), 0);
+    r = a.r[p];
+    bw = a.bw[p];
+  }
+  const int rows = __reduce_max_sync(kFull, m);
+  const int pc = max(pair, 0);
+  const int8_t* rd_s = a.rd_tile + pc * a.sr;
+  const int8_t* rf_s = a.rf_tile + pc * a.sf;
+  int16_t* slot = a.slots + seg * a.bstride;
+  int16_t* out = a.dirs + static_cast<size_t>(a.p0 + pc) * a.m_max * a.nl;
+  if (kEmit && kRel) {
+    zero_cells<S>(slot, a.bstride, 1, sl);
+    __syncwarp();
+  }
+  int ref[K], h[K], e[K], d2[K], jj[K];
 #pragma unroll
   for (int q = 0; q < K; ++q) {
-    const int j = lane * K + q;
-    ref[q] = j < nl ? ref_t[static_cast<size_t>(j) * P + p] : 4;
+    const int j = sl * K + q;
+    ref[q] = (!kRel && j < a.rows_f) ? rf_s[j] : 4;
     h[q] = 0;
     e[q] = 0;
     d2[q] = 0;
     jj[q] = 0;
-    packed[q] = 0;
   }
   int best = 0;
-  int16_t* row_out = dirs + static_cast<size_t>(p) * m_max * nl;
-
-  for (int i = 0; i < m; ++i) {
-    const int rd = read_t[static_cast<size_t>(i) * P + p];
-    band_row<K, false, kEmit>(i, 0, rd, ref, r, bw, nl, lane, h, e, d2, jj,
-                              best, packed);
-    if (kEmit) {
+  int rd;
+  row_codes<K, kRel>(rd_s, rf_s, 0, -bw, rows, a.rows_f, sl, rd, ref);
+  for (int i = 0; i < rows; ++i) {
+    const int o = kRel ? i - bw : 0;
+    int rd_n, ref_n[K];
 #pragma unroll
-      for (int q = 0; q < K; ++q) {
-        const int j = lane * K + q;
-        if (j < nl) row_out[static_cast<size_t>(i) * nl + j] =
-            static_cast<int16_t>(packed[q]);
+    for (int q = 0; q < K; ++q) ref_n[q] = ref[q];
+    row_codes<K, kRel>(rd_s, rf_s, i + 1, o + 1, rows, a.rows_f, sl, rd_n,
+                       ref_n);
+    const int kept = best;
+    RowVals<K> w;
+    row_score<S, K, kRel>(i, o, rd, ref, r, bw, a.nl, sl, h, e, best, w);
+    if (i >= m) best = kept;
+    if (kEmit) emit_row<S, K, kRel>(a, i, m, r, bw, sl, w, d2, jj, slot, out);
+    rd = rd_n;
+#pragma unroll
+    for (int q = 0; q < K; ++q) ref[q] = ref_n[q];
+  }
+  best = warp_max<S>(best);
+  if (pair >= 0 && sl == 0) a.best[a.p0 + pair] = best;
+}
+
+// A pair's class, heaviest first: absolute lanes (KA cells a lane over
+// all NL); band-relative lanes at 4, 2 or 1 cells a lane (2 bw + 1 cells
+// fit 32 K lanes, K below KA); 16- and 8-lane segments of one cell a
+// lane, 2 and 4 pairs a warp.  A pair with no row goes with the 8-lane
+// segments (it only zeroes its directions).
+enum FillClass { kAbs, kRel4, kRel2, kRel1, kSeg16, kSeg8, kClasses };
+
+template <int KA>
+__device__ __forceinline__ int fill_class(int m, int bw) {
+  if (m <= 0 || bw <= 3) return kSeg8;
+  if (bw <= 7) return kSeg16;
+  if (KA > 1 && bw <= 15) return kRel1;
+  if (KA > 2 && bw <= 31) return kRel2;
+  if (KA > 4 && bw <= 63) return kRel4;
+  return kAbs;
+}
+
+__device__ __forceinline__ int class_pairs(int c) {
+  return c == kSeg8 ? 4 : c == kSeg16 ? 2 : 1;
+}
+
+// unit u of a tile -> its class c, its rank w in the class and the
+// class's pairs (units are numbered class by class, heaviest first)
+__device__ __forceinline__ void unit_of(int u,
+                                        const unsigned (&masks)[kClasses],
+                                        const int (&units)[kClasses], int& c,
+                                        int& w, unsigned& mask) {
+  c = kSeg8;
+  w = u;
+  mask = 0;
+  bool found = false;
+#pragma unroll
+  for (int k = 0; k < kClasses; ++k) {
+    if (!found) {
+      if (w < units[k]) {
+        c = k;
+        mask = masks[k];
+        found = true;
+      } else {
+        w -= units[k];
       }
     }
   }
-  if (kEmit) {
-    for (int i = max(m, 0); i < m_max; ++i)
-#pragma unroll
-      for (int q = 0; q < K; ++q) {
-        const int j = lane * K + q;
-        if (j < nl) row_out[static_cast<size_t>(i) * nl + j] = 0;
-      }
-  }
-  best = warp_max(best);
-  if (lane == 0) best_out[p] = best;
 }
 
-template <int K>
-void launch_fill(const int32_t* read_t, const int32_t* ref_t,
-                 const int32_t* m, const int32_t* r, const int32_t* bw,
-                 const int32_t* done, int32_t* best, int16_t* dirs, int p,
-                 int m_max, int nl, int emit, cudaStream_t stream) {
-  const int threads = 128;                 // 4 pairs per block
-  const int blocks = (p + threads / 32 - 1) / (threads / 32);
-  if (emit)
-    fill_kernel<K, true><<<blocks, threads, 0, stream>>>(
-        read_t, ref_t, m, r, bw, done, best, dirs, p, m_max, nl);
-  else
-    fill_kernel<K, false><<<blocks, threads, 0, stream>>>(
-        read_t, ref_t, m, r, bw, done, best, dirs, p, m_max, nl);
+// bytes a pair's codes take in shared memory: n rounded up to whole
+// words, an odd count of them (segments of a warp read distinct banks)
+__host__ __device__ inline int code_stride(int n) {
+  return 4 * (((n + 3) / 4) | 1);
+}
+
+// A block owns a tile of kFillPairs adjacent pairs: it stages their codes
+// once, then its warps take the tile's units (a pair of a wide class, two
+// of kSeg16, four of kSeg8), the widest class first, each warp the next
+// one when it is free.
+template <int KA, bool kEmit>
+__global__ void __launch_bounds__(kFillThreads, 2)
+fill_kernel(const void* __restrict__ read_t, int read_stride,
+            const void* __restrict__ ref_t, int ref_stride, int elem_bytes,
+            int vec_r, int vec_f, const int32_t* __restrict__ m_a,
+            const int32_t* __restrict__ r_a, const int32_t* __restrict__ bw_a,
+            const int32_t* __restrict__ done_a, int32_t* __restrict__ best_out,
+            int16_t* __restrict__ dirs, int p_total, int m_max, int nl,
+            int vec_d) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  FillArgs a;
+  a.m = m_a;
+  a.r = r_a;
+  a.bw = bw_a;
+  a.best = best_out;
+  a.dirs = dirs;
+  a.p0 = blockIdx.x * kFillPairs;
+  a.m_max = m_max;
+  a.nl = nl;
+  a.sr = code_stride(m_max);
+  a.sf = code_stride(nl);
+  a.bstride = (nl + 7) & ~7;
+  a.vec_d = vec_d;
+  int8_t* rd_tile = reinterpret_cast<int8_t*>(smem);
+  int8_t* rf_tile = rd_tile + kFillPairs * a.sr;
+  a.rd_tile = rd_tile;
+  a.rf_tile = rf_tile;
+  a.slots = reinterpret_cast<int16_t*>(
+      smem + round16(kFillPairs * (a.sr + a.sf))) +
+      warp * kFillSegs * a.bstride;
+
+  // lane = pair p0 + lane of the tile, in every warp
+  const int valid = min(kFillPairs, p_total - a.p0);
+  bool live = false;
+  int m = 0, r = 0, bw = 0;
+  if (lane < valid) {
+    const int p = a.p0 + lane;
+    live = done_a[p] == 0;
+    m = min(m_a[p], m_max);
+    r = r_a[p];
+    bw = bw_a[p];
+    if (!live && warp == 0) best_out[p] = 0;
+  }
+  const unsigned live_mask = __ballot_sync(kFull, live);
+  const int rows_r = __reduce_max_sync(kFull, live ? max(m, 0) : 0);
+  a.rows_f = min(nl, __reduce_max_sync(kFull, live ? max(r, 0) : 0));
+  if (elem_bytes == 1) {
+    stage_codes(static_cast<const int8_t*>(read_t), read_stride, vec_r,
+                rows_r, rd_tile, a.sr, a.p0, valid, live_mask);
+    stage_codes(static_cast<const int8_t*>(ref_t), ref_stride, vec_f,
+                a.rows_f, rf_tile, a.sf, a.p0, valid, live_mask);
+  } else {
+    stage_codes(static_cast<const int32_t*>(read_t), read_stride, vec_r,
+                rows_r, rd_tile, a.sr, a.p0, valid, live_mask);
+    stage_codes(static_cast<const int32_t*>(ref_t), ref_stride, vec_f,
+                a.rows_f, rf_tile, a.sf, a.p0, valid, live_mask);
+  }
+
+  const int cls = fill_class<KA>(m, bw);
+  unsigned masks[kClasses];
+  int units[kClasses];
+  int total = 0;
+#pragma unroll
+  for (int c = 0; c < kClasses; ++c) {
+    masks[c] = __ballot_sync(kFull, live && cls == c);
+    units[c] = (__popc(masks[c]) + class_pairs(c) - 1) / class_pairs(c);
+    total += units[c];
+  }
+  // the warps take the units in that order (the widest lanes first), each
+  // the next one when it is free; emitting, then the zero rows m..m_max-1
+  // of each pair not done, a task a pair, so that no unit waits on them
+  __shared__ int next_unit;
+  if (threadIdx.x == 0) next_unit = 0;
+  __syncthreads();
+  const int tasks = total + (kEmit ? __popc(live_mask) : 0);
+  for (;;) {
+    int u = lane == 0 ? atomicAdd(&next_unit, 1) : 0;
+    u = __shfl_sync(kFull, u, 0);
+    if (u >= tasks) break;
+    if (u >= total) {
+      const int p = a.p0 + nth_set(live_mask, u - total);
+      const int mp = max(min(m_a[p], m_max), 0);
+      zero_cells<32>(dirs + (static_cast<size_t>(p) * m_max + mp) * nl,
+                     static_cast<size_t>(m_max - mp) * nl, vec_d, lane);
+      continue;
+    }
+    int c, w;
+    unsigned mask;
+    unit_of(u, masks, units, c, w, mask);
+    const int rank0 = w * class_pairs(c);
+    if (c == kAbs) {
+      fill_unit<32, KA, false, kEmit>(a, mask, rank0, lane);
+    } else if (c == kRel4) {
+      if constexpr (KA > 4)
+        fill_unit<32, 4, true, kEmit>(a, mask, rank0, lane);
+    } else if (c == kRel2) {
+      if constexpr (KA > 2)
+        fill_unit<32, 2, true, kEmit>(a, mask, rank0, lane);
+    } else if (c == kRel1) {
+      if constexpr (KA > 1)
+        fill_unit<32, 1, true, kEmit>(a, mask, rank0, lane);
+    } else if (c == kSeg16) {
+      fill_unit<16, 1, true, kEmit>(a, mask, rank0, lane);
+    } else {
+      fill_unit<8, 1, true, kEmit>(a, mask, rank0, lane);
+    }
+  }
+}
+
+size_t fill_smem(int m_max, int nl, int emit) {
+  const size_t codes = static_cast<size_t>(kFillPairs) *
+      (code_stride(m_max) + code_stride(nl));
+  return ((codes + 15) & ~static_cast<size_t>(15)) +
+      (emit ? static_cast<size_t>(kFillWarps) * kFillSegs *
+                  ((nl + 7) & ~7) * sizeof(int16_t)
+            : 0);
+}
+
+template <int KA, bool kEmit>
+cudaError_t launch_fill(const void* read_t, int read_stride, const void* ref_t,
+                        int ref_stride, int elem_bytes, const int32_t* m,
+                        const int32_t* r, const int32_t* bw,
+                        const int32_t* done, int32_t* best, int16_t* dirs,
+                        int p, int m_max, int nl, cudaStream_t stream) {
+  const size_t smem = fill_smem(m_max, nl, kEmit);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fill_kernel<KA, kEmit>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  auto aligned = [](const void* x, long stride_bytes) {
+    return reinterpret_cast<uintptr_t>(x) % 16 == 0 && stride_bytes % 16 == 0
+        ? 1 : 0;
+  };
+  const int vec_r = aligned(read_t, static_cast<long>(read_stride) *
+                                        elem_bytes);
+  const int vec_f = aligned(ref_t, static_cast<long>(ref_stride) * elem_bytes);
+  const int vec_d = kEmit && nl % 8 == 0 &&
+      reinterpret_cast<uintptr_t>(dirs) % 16 == 0 ? 1 : 0;
+  const int blocks = (p + kFillPairs - 1) / kFillPairs;
+  fill_kernel<KA, kEmit><<<blocks, kFillThreads, smem, stream>>>(
+      read_t, read_stride, ref_t, ref_stride, elem_bytes, vec_r, vec_f, m, r,
+      bw, done, best, dirs, p, m_max, nl, vec_d);
+  return cudaGetLastError();
+}
+
+template <int KA>
+cudaError_t launch_fill_emit(const void* read_t, int read_stride,
+                             const void* ref_t, int ref_stride,
+                             int elem_bytes, const int32_t* m,
+                             const int32_t* r, const int32_t* bw,
+                             const int32_t* done, int32_t* best,
+                             int16_t* dirs, int p, int m_max, int nl,
+                             int emit, cudaStream_t stream) {
+  return emit
+      ? launch_fill<KA, true>(read_t, read_stride, ref_t, ref_stride,
+                              elem_bytes, m, r, bw, done, best, dirs, p,
+                              m_max, nl, stream)
+      : launch_fill<KA, false>(read_t, read_stride, ref_t, ref_stride,
+                               elem_bytes, m, r, bw, done, best, dirs, p,
+                               m_max, nl, stream);
 }
 
 // One emitting pass of a pair at band width bw: rows i < rows, the codes
@@ -434,7 +875,7 @@ __device__ int emit_pass(const uint8_t* rd_s, const uint8_t* rf_s, int rows,
         ref[q] = (j >= 0 && j < nl) ? rf_s[j] : 4;
       }
     }
-    band_row<K, kRel, true>(i, o, rd_s[i], ref, r, bw, nl, lane, h, e, d2,
+    band_row<32, K, kRel, true>(i, o, rd_s[i], ref, r, bw, nl, lane, h, e, d2,
                             jj, best, packed);
 #pragma unroll
     for (int q = 0; q < K; ++q) {
@@ -444,8 +885,6 @@ __device__ int emit_pass(const uint8_t* rd_s, const uint8_t* rf_s, int rows,
   }
   return warp_max(best);
 }
-
-__device__ __forceinline__ int round16(int n) { return (n + 15) & ~15; }
 
 // KA = ceil(nl / 32) rounded up to a power of two: the cells a thread
 // holds in absolute lanes.
@@ -648,29 +1087,36 @@ extern "C" int hrm_shift_sub(const void* x, const void* sh, void* out, int l,
   return static_cast<int>(err);
 }
 
-// read_t [m_max, p], ref_t [nl, p] int32; m, r, bw, done [p] int32 ->
-// best [p] int32; dirs [p, m_max, nl] int16 when emit != 0
-extern "C" int hrm_fill_pass(const void* read_t, const void* ref_t,
-                             const void* m, const void* r, const void* bw,
-                             const void* done, void* best, void* dirs, int p,
-                             int m_max, int nl, int emit, void* stream) {
-  if (nl < 1 || nl > 256) return static_cast<int>(cudaErrorInvalidValue);
-  if (p > 0) {
-    const auto* rt = static_cast<const int32_t*>(read_t);
-    const auto* ft = static_cast<const int32_t*>(ref_t);
-    const auto* mm = static_cast<const int32_t*>(m);
-    const auto* rr = static_cast<const int32_t*>(r);
-    const auto* bb = static_cast<const int32_t*>(bw);
-    const auto* dd = static_cast<const int32_t*>(done);
-    auto* bo = static_cast<int32_t*>(best);
-    auto* dr = static_cast<int16_t*>(dirs);
-    auto st = static_cast<cudaStream_t>(stream);
-    if (nl <= 32) launch_fill<1>(rt, ft, mm, rr, bb, dd, bo, dr, p, m_max, nl, emit, st);
-    else if (nl <= 64) launch_fill<2>(rt, ft, mm, rr, bb, dd, bo, dr, p, m_max, nl, emit, st);
-    else if (nl <= 128) launch_fill<4>(rt, ft, mm, rr, bb, dd, bo, dr, p, m_max, nl, emit, st);
-    else launch_fill<8>(rt, ft, mm, rr, bb, dd, bo, dr, p, m_max, nl, emit, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+// read_t [>= m_max rows, p] (row stride read_stride elements), ref_t [nl,
+// p] (ref_stride) subregion codes, int8 (elem_bytes 1) or int32 (4) of
+// the int8 range; m, r, bw, done [p] int32 -> best [p] int32; dirs [p,
+// m_max, nl] int16 when emit != 0
+extern "C" int hrm_fill_pass(const void* read_t, int read_stride,
+                             const void* ref_t, int ref_stride,
+                             int elem_bytes, const void* m, const void* r,
+                             const void* bw, const void* done, void* best,
+                             void* dirs, int p, int m_max, int nl, int emit,
+                             void* stream) {
+  if (nl < 1 || nl > 256 || m_max < 0 || (elem_bytes != 1 && elem_bytes != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (p <= 0) return static_cast<int>(cudaGetLastError());
+  const auto* mm = static_cast<const int32_t*>(m);
+  const auto* rr = static_cast<const int32_t*>(r);
+  const auto* bb = static_cast<const int32_t*>(bw);
+  const auto* dd = static_cast<const int32_t*>(done);
+  auto* bo = static_cast<int32_t*>(best);
+  auto* dr = static_cast<int16_t*>(dirs);
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (nl <= 32)
+    err = launch_fill_emit<1>(read_t, read_stride, ref_t, ref_stride, elem_bytes, mm, rr, bb, dd, bo, dr, p, m_max, nl, emit, st);
+  else if (nl <= 64)
+    err = launch_fill_emit<2>(read_t, read_stride, ref_t, ref_stride, elem_bytes, mm, rr, bb, dd, bo, dr, p, m_max, nl, emit, st);
+  else if (nl <= 128)
+    err = launch_fill_emit<4>(read_t, read_stride, ref_t, ref_stride, elem_bytes, mm, rr, bb, dd, bo, dr, p, m_max, nl, emit, st);
+  else
+    err = launch_fill_emit<8>(read_t, read_stride, ref_t, ref_stride, elem_bytes, mm, rr, bb, dd, bo, dr, p, m_max, nl, emit, st);
+  return static_cast<int>(err);
 }
 
 // read_s [p, m_max], ref_s [p, nl] uint8 subregion codes; m, r, score1 [p]

@@ -14,9 +14,11 @@ What bounds them on the card, and what the designs do about it (details
 at the top of csrc/bandtb.cu): shift_sub is bound by memory, so a block
 stages a tile of 32 pairs in shared memory and every byte moves once, in
 whole sectors; the fill and the traceback are bound by the latency of the
-row loop, so the traceback kernel keeps a pair in one warp for all its
-passes and its walk, narrows the lanes to the band, emits in every pass
-and keeps the directions in shared memory.
+row loop, so both narrow the lanes to the band; the fill kernel puts up
+to four narrow pairs in a warp (8- and 16-lane segments) and stores each
+row of directions in whole lines, and the traceback kernel keeps a pair
+in one warp for all its passes and its walk, emits in every pass and
+keeps the directions in shared memory.
 
 Layouts: the inputs keep the JAX package's pairs-minor [L, P].  shift_sub
 gives [size, P] int32 as the JAX functions do, or, with pair_major, the
@@ -212,7 +214,11 @@ def fill_pass(read_t, ref_t, m, r, bw, done, m_max: int, emit_dirs: bool
     read_t [>= m_max, P] and ref_t [NL, P] subregion codes; m, r, bw,
     done [P].  Returns (best [P] int32, 0 for done pairs; dirs
     [P, m_max, NL] int16 of dh | run << 3 when emit_dirs, else None).
-    The kernel leaves a done pair's directions unwritten."""
+    The kernel takes int8 or int32 codes as they come (rows of adjacent
+    pairs, any row stride) and leaves a done pair's directions unwritten.
+    It keeps codes in int8, so on a CUDA tensor codes of another dtype
+    must lie in the int8 range (subregion codes are 0..4): it raises on
+    others, where the plain version compares the values whole."""
     if ref_t.device.type == "cpu":
         return fill_pass_plain(read_t, ref_t, m, r, bw, done, m_max,
                                emit_dirs)
@@ -220,16 +226,29 @@ def fill_pass(read_t, ref_t, m, r, bw, done, m_max: int, emit_dirs: bool
     NL, P = ref_t.shape
     if NL > NL_MAX:
         raise ValueError(f"fill_pass: NL={NL} exceeds the kernel's {NL_MAX}")
+    for what, t in (("read codes", read_t), ("ref codes", ref_t)):
+        if t.dtype != torch.int8:
+            _build.check_range("fill_pass", what, t, -128, 127)
+    codes = (read_t, ref_t)
+    if read_t.dtype != ref_t.dtype or read_t.dtype not in (torch.int8,
+                                                           torch.int32):
+        codes = tuple(t.to(torch.int32) for t in codes)
+    read_c, ref_c = (t if t.stride(1) == 1 or P == 1 else t.contiguous()
+                     for t in codes)
     i32 = lambda t: t.to(torch.int32).contiguous()
-    args = [i32(read_t), i32(ref_t), i32(m), i32(r), i32(bw), i32(done)]
+    args = [i32(m), i32(r), i32(bw), i32(done)]
     dev = ref_t.device
     best = torch.empty(P, dtype=torch.int32, device=dev)
     dirs = torch.empty((P, m_max, NL) if emit_dirs else (1,),
                        dtype=torch.int16, device=dev)
     _build.check_cuda("fill_pass", *args, best, dirs)
-    _build.launch("hrm_fill_pass", *[t.data_ptr() for t in args],
-                  best.data_ptr(), dirs.data_ptr(), P, m_max, NL,
-                  int(emit_dirs), _build.stream(best))
+    if read_c.device != dev:
+        raise ValueError("fill_pass: all inputs must be on one CUDA device")
+    _build.launch("hrm_fill_pass", read_c.data_ptr(), read_c.stride(0),
+                  ref_c.data_ptr(), ref_c.stride(0), read_c.element_size(),
+                  *[t.data_ptr() for t in args], best.data_ptr(),
+                  dirs.data_ptr(), P, m_max, NL, int(emit_dirs),
+                  _build.stream(best))
     fill_pass.launches += 1
     return best, (dirs if emit_dirs else None)
 

@@ -17,7 +17,6 @@ others, on the CPU as on the card.
 
 from __future__ import annotations
 
-import weakref
 from typing import Optional, Tuple
 
 import torch
@@ -37,10 +36,6 @@ def kmer_mask_py(k: int) -> int:
     return (1 << (2 * k)) - 1
 
 
-# CUDA hash-id tensors already checked, by id: (weak reference, version)
-_checked_ids = {}
-
-
 def check_hash_ids(name: str, hash_ids: torch.Tensor) -> None:
     """Raise unless every hash id lies in [0, 2**32): the kernels' hash
     relies on kmer + hash id < 2**33.  A CUDA tensor is read back once per
@@ -48,23 +43,7 @@ def check_hash_ids(name: str, hash_ids: torch.Tensor) -> None:
     if hash_ids.dim() != 1 or hash_ids.dtype.is_floating_point \
             or hash_ids.dtype == torch.bool:
         raise ValueError(f"{name}: hash_ids must be a 1-D integer tensor")
-    if hash_ids.numel() == 0:
-        return
-    cuda = hash_ids.device.type == "cuda"
-    key = id(hash_ids)
-    if cuda and key in _checked_ids:
-        ref, version = _checked_ids[key]
-        if ref() is hash_ids and version == hash_ids._version:
-            return
-    ids = hash_ids.to(torch.int64)
-    lo, hi = int(ids.min()), int(ids.max())
-    if lo < 0 or hi >= 2**32:
-        raise ValueError(f"{name}: hash ids must lie in [0, 2**32), got "
-                         f"[{lo}, {hi}]")
-    if cuda:
-        _checked_ids[key] = (weakref.ref(
-            hash_ids, lambda _, k=key: _checked_ids.pop(k, None)),
-            hash_ids._version)
+    _build.check_range(name, "hash ids", hash_ids, 0, 2**32 - 1)
 
 
 def _check(name, bases, lengths, k, hash_ids, mode, modes=MODES):

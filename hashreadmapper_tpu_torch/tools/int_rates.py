@@ -35,7 +35,7 @@ MODES = (("LOP3", 1), ("IADD", 1), ("IMAD", 1), ("max (VIMNMX)", 1),
          ("s16x2 add-max + IMAD", 2), ("max + IMAD", 2),
          ("IMAD.WIDE (64-bit accumulate)", 1), ("IMAD.WIDE + LOP3", 2),
          ("csrc/murmur.cuh's hash and keep (hashes, not instructions)", 1),
-         ("IMAD.HI", 1))
+         ("IMAD.HI", 1), ("SHFL (xor)", 1), ("SHFL + max", 2))
 
 SOURCE = r"""
 #include <cstdint>
@@ -88,6 +88,11 @@ __global__ void rate_kernel(uint32_t* out, long long* cycles, int iters,
         x[i] += a;
       }
       if (MODE == 14) x[i] = __umulhi(x[i], a) + x[j];     // IMAD.HI
+      if (MODE == 15 || MODE == 16)                              // SHFL
+        x[i] = __shfl_xor_sync(0xffffffffu, x[i], (i & 3) + 1);
+      if (MODE == 16)
+        y[i] = static_cast<uint32_t>(max(static_cast<int>(y[i]),
+                                         static_cast<int>(y[j])));
     }
   }
   __syncthreads();
@@ -125,6 +130,8 @@ extern "C" int hrm_rate(int mode, void* out, void* cycles, int blocks,
     case 12: run<12>(o, c, blocks, iters); break;
     case 13: run<13>(o, c, blocks, iters); break;
     case 14: run<14>(o, c, blocks, iters); break;
+    case 15: run<15>(o, c, blocks, iters); break;
+    case 16: run<16>(o, c, blocks, iters); break;
     default: return -1;
   }
   return static_cast<int>(cudaDeviceSynchronize());

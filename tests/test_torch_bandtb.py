@@ -126,25 +126,26 @@ def _pallas_fill(read_t, ref_t, m, r, bw, done, emit):
     return np.asarray(out[0][0]), None
 
 
-@pytest.mark.parametrize("emit", [False, True])
-def test_fill_pass_equals_xla_and_interpret_pallas(scored, emit):
-    """One fill pass on the subregions of 128 scored pairs, first bands
-    and doubled ones, a quarter of the pairs done: best where not done,
-    and directions (rows >= m are 0) for the pairs not done."""
+def _subregions(scored):
+    """The scored pairs' subregion codes ([LQ, P] and [NL, P] int32) and
+    rows m and columns r (0 for pairs without an alignment)."""
     rc, fc, s10 = scored
     qb, qe, rb, re = s10[6], s10[2], s10[5], s10[1]
     ok = (s10[0] > 0) & (re >= 0) & (s10[8] == 0)
     qb, rb = np.where(ok, qb, 0), np.where(ok, rb, 0)
     m = np.where(ok, qe - qb + 1, 0).astype(np.int32)
     r = np.where(ok, re - rb + 1, 0).astype(np.int32)
-    rng = np.random.default_rng(4)
-    bw = (np.abs(r - m) + 1) * rng.choice([1, 2, 4], size=len(m))
-    bw = bw.astype(np.int32)
-    done = (rng.random(len(m)) < 0.25).astype(np.int32)
     read_t = np.asarray(jbt._shift_sub_xla(
         jnp.asarray(rc).astype(jnp.int32).T, jnp.asarray(qb), LQ))
     ref_t = np.asarray(jbt._shift_sub_xla(
         jnp.asarray(fc).astype(jnp.int32).T, jnp.asarray(rb), NL))
+    return read_t, ref_t, m, r
+
+
+def _fill_equals_jax(read_t, ref_t, m, r, bw, done, emit):
+    """fill_pass on the CPU (its plain version) == JAX _fill_pass (XLA
+    scan) and _fill_pallas in interpret mode: best where not done, 0
+    where done; directions of the pairs not done, rows >= m 0."""
     best_x, dirs_x = jbt._fill_pass(
         jnp.asarray(read_t), jnp.asarray(ref_t).T, jnp.asarray(m),
         jnp.asarray(r), jnp.asarray(bw), LQ, emit)
@@ -159,7 +160,7 @@ def test_fill_pass_equals_xla_and_interpret_pallas(scored, emit):
     assert (best.numpy()[~live] == 0).all()
     if not emit:
         assert dirs is None
-        return
+        return None
     assert dirs.shape == (len(m), LQ, NL) and dirs.dtype == torch.int16
     got = dirs.numpy()[live]
     np.testing.assert_array_equal(
@@ -167,7 +168,65 @@ def test_fill_pass_equals_xla_and_interpret_pallas(scored, emit):
     np.testing.assert_array_equal(got, dirs_p.transpose(2, 0, 1)[live])
     rows = np.arange(LQ)[None, :, None]
     assert (np.where(rows >= m[live][:, None, None], got, 0) == 0).all()
-    assert (got & 7).max() >= 4                 # D runs present
+    return got
+
+
+@pytest.mark.parametrize("emit", [False, True])
+def test_fill_pass_equals_xla_and_interpret_pallas(scored, emit):
+    """One fill pass on the subregions of 128 scored pairs, first bands
+    and doubled ones, a quarter of the pairs done: best where not done,
+    and directions (rows >= m are 0) for the pairs not done."""
+    read_t, ref_t, m, r = _subregions(scored)
+    rng = np.random.default_rng(4)
+    bw = (np.abs(r - m) + 1) * rng.choice([1, 2, 4], size=len(m))
+    bw = bw.astype(np.int32)
+    done = (rng.random(len(m)) < 0.25).astype(np.int32)
+    got = _fill_equals_jax(read_t, ref_t, m, r, bw, done, emit)
+    if emit:
+        assert (got & 7).max() >= 4                 # D runs present
+
+
+# The CUDA fill kernel splits on the band's cells 2 bw + 1: up to 8 in an
+# 8-lane segment, up to 16 in a 16-lane one, up to 32 K band-relative
+# cells at K = 1, 2, 4, more on absolute lanes.  Each case sets bw for all
+# pairs on both sides of an edge; a row near the top holds bw + 1 cells
+# (8, 9, 16, 17, 32 and 33 of them at bw 7, 8, 15, 16, 31 and 32).
+FILL_EDGES = {
+    "bw 1, 3 cells": dict(bw=1),
+    "bw 3, 7 cells": dict(bw=3),
+    "bw 4, 9 cells": dict(bw=4),
+    "bw 7, 15 cells": dict(bw=7),
+    "bw 8, 17 cells": dict(bw=8),
+    "bw 15, 31 cells": dict(bw=15),
+    "bw 16, 33 cells": dict(bw=16),
+    "bw 31, 63 cells": dict(bw=31),
+    "bw 32, 65 cells": dict(bw=32),
+    "band wider than NL": dict(bw=NL + 20),
+    "r > NL": dict(r=NL + 9),
+    "m = 0 every other pair": dict(m=0),
+    "m = m_max": dict(m=LQ),
+}
+
+
+@pytest.mark.parametrize("edge", list(FILL_EDGES))
+def test_fill_pass_at_the_kernels_edges_equals_jax(scored, edge):
+    """fill_pass_plain against the JAX XLA pass and the interpret-mode
+    Pallas kernel, emitting, at each band width where the CUDA kernel
+    changes its lanes, a band wider than NL, r past NL, m = 0 and m =
+    m_max (bw the first band |r - m| + 1 where the case does not set it);
+    a quarter of the pairs done."""
+    read_t, ref_t, m, r = _subregions(scored)
+    case = FILL_EDGES[edge]
+    if "r" in case:
+        r = np.full_like(r, case["r"])
+    if "m" in case:
+        m = (np.where(np.arange(len(m)) % 2 == 0, case["m"], m) if
+             case["m"] == 0 else np.full_like(m, case["m"])).astype(np.int32)
+    bw = np.full_like(m, case["bw"]) if "bw" in case else np.abs(r - m) + 1
+    done = (np.random.default_rng(5).random(len(m)) < 0.25).astype(np.int32)
+    got = _fill_equals_jax(read_t, ref_t, m, r, bw.astype(np.int32), done,
+                           True)
+    assert got.any()
 
 
 @pytest.mark.parametrize("mode", ["dispatch", "fused"])

@@ -637,11 +637,22 @@ def test_shift_sub_kernel_takes_both_code_types_and_layouts(dev, L, p, dtype,
     assert torch.equal(bk.shift_sub(y, sh, size, pair_major), want)
 
 
+@pytest.mark.parametrize("codes", ["int32", "int8", "int8 rows of a wider "
+                                   "tensor", "int32 transposed view"])
 @pytest.mark.parametrize("nl,emit", [(128, False), (128, True), (100, True),
                                      (32, True), (200, True)])
-def test_fill_kernel_equals_plain(dev, nl, emit):
+def test_fill_kernel_equals_plain(dev, nl, emit, codes):
     """Subregions of scored pairs at first and widened bands, a third of
-    the pairs done (their directions are never written)."""
+    the pairs done (their directions are never written).  P = 150, not a
+    multiple of the kernel's 32-pair tile.  The first two tiles' pairs
+    cycle through band widths on both sides of each lane-count edge
+    (2 bw + 1 cells of 3, 7 | 9, 15 | 17, 31 | 33, 63 | 65, 127 | 129 and
+    401: 8- and 16-lane segments, band-relative lanes of 1, 2 and 4 cells
+    and absolute lanes in one tile), so 8- and 16-lane segments share a
+    warp with pairs of other m; some pairs get m = 0 or m = m_max.  Codes
+    int8 or int32 as they come, rows of a wider tensor (a row stride of
+    their own, no copy) or a transposed view (copied).  Directions of
+    rows >= m are 0."""
     rng = np.random.default_rng(nl)
     p, lq = 150, 96
     read_t, rl, ref_t, fl = (x.to(dev) for x in _pairs(rng, p, lq, nl))
@@ -654,17 +665,70 @@ def test_fill_kernel_equals_plain(dev, nl, emit):
     r = torch.where(ok, re - rb + 1, 0)
     widen = torch.from_numpy(rng.choice([1, 2, 8], p).astype(np.int32))
     bw = ((r - m).abs() + 1) * widen.to(dev)
+    k = torch.arange(p, device=dev)
+    edges = torch.tensor([1, 3, 4, 7, 8, 15, 16, 31, 32, 63, 64, 200],
+                         dtype=torch.int32, device=dev)
+    bw = torch.where(k < 64, edges[k % len(edges)], bw)
+    m = torch.where(k % 17 == 5, 0, torch.where(k % 17 == 9, lq, m))
     done = torch.from_numpy((rng.random(p) < 0.33).astype(np.int32)).to(dev)
-    args = (bk.shift_sub(read_t, qb, lq), bk.shift_sub(ref_t, rb, nl), m, r,
-            bw, done, lq, emit)
+    live = done == 0
+    narrow = live & (k < 32) & (bw <= 3)
+    assert len(set(m[narrow].tolist())) > 1           # segments of other m
+    sub = [bk.shift_sub(read_t, qb, lq), bk.shift_sub(ref_t, rb, nl)]
+    if "int8" in codes:
+        sub = [x.to(torch.int8) for x in sub]
+    if "wider" in codes:
+        wide = [torch.full((x.shape[0], p + 10), 4, dtype=x.dtype,
+                           device=dev) for x in sub]
+        for w, x in zip(wide, sub):
+            w[:, :p] = x
+        sub = [w[:, :p] for w in wide]
+        assert not sub[0].is_contiguous()
+    if "transposed" in codes:
+        sub = [x.T.contiguous().T for x in sub]
+    args = (*sub, m, r, bw, done, lq, emit)
     best, dirs = _launched_once(bk.fill_pass, lambda: bk.fill_pass(*args))
     best_p, dirs_p = bk.fill_pass_plain(*args)
     assert torch.equal(best, best_p)
     if emit:
-        live = done == 0
         assert torch.equal(dirs[live], dirs_p[live])
+        rows = torch.arange(lq, device=dev)[None, :, None]
+        assert not torch.where(rows >= m[live][:, None, None], dirs[live],
+                               0).any()
     else:
         assert dirs is None and dirs_p is None
+
+
+@pytest.mark.parametrize("dtype,planted,raises", [
+    (torch.int32, 256, True), (torch.int32, -129, True),
+    (torch.uint8, 200, True), (torch.int32, 127, False),
+    (torch.int32, -128, False)])
+def test_fill_kernel_codes_outside_int8(dev, dtype, planted, raises):
+    """The kernel keeps codes in int8, where the plain version compares
+    them whole: codes outside the int8 range raise on the card, and codes
+    inside it other than 0..4 (planted in read and ref alike) equal the
+    plain version."""
+    rng = np.random.default_rng(3)
+    p, lq, nl = 40, 24, 32
+    read_t = torch.from_numpy(rng.integers(0, 5, (lq, p))).to(dtype)
+    ref_t = torch.from_numpy(rng.integers(0, 5, (nl, p))).to(dtype)
+    read_t[::3, ::2] = planted
+    ref_t[::3, ::2] = planted
+    m = torch.from_numpy(rng.integers(0, lq + 1, p).astype(np.int32))
+    r = torch.from_numpy(rng.integers(1, nl + 1, p).astype(np.int32))
+    bw = torch.from_numpy(rng.integers(1, 12, p).astype(np.int32))
+    done = torch.from_numpy((rng.random(p) < 0.2).astype(np.int32))
+    cpu = (read_t, ref_t, m, r, bw, done, lq, True)
+    best_p, dirs_p = bk.fill_pass_plain(*cpu)
+    args = tuple(x.to(dev) if torch.is_tensor(x) else x for x in cpu)
+    if raises:
+        with pytest.raises(ValueError, match="must lie in"):
+            bk.fill_pass(*args)
+        return
+    best, dirs = bk.fill_pass(*args)
+    live = done == 0
+    assert torch.equal(best.cpu(), best_p)
+    assert torch.equal(dirs.cpu()[live], dirs_p[live])
 
 
 def _traceback_case(dev, p, lq, nl, seed):
