@@ -45,8 +45,21 @@ Phase 5  --threeN --undirectional through the CLI at the same width on
 Phase 6  parity mode (no --threeN) through the CLI on 16,384 unconverted
          reads: mapping and concordance, launch counts, and card == CPU
          packed rows of 1,024 reads.
+Phase 7  the window stream (the read index resident, the genome's windows
+         streamed through it) at the flagship width: 49,152 planted reads
+         against the 8 Mbp genome, read-index build and map_genome times,
+         reads/s and windows/s, launches per window batch (also under
+         torch.profiler), overflow counters 0, planted mapping and
+         concordance; card == CPU on a 1 Mbp prefix with 8,192 reads, 3N
+         and --undirectional.
+Phase 8  --regions 4 through the flagship CLI (a window partition of the
+         chromosome, four mappers without cuckoo tables): SAM and VCF byte
+         for byte phase 2's.
 Phase 4  a chr1-sized (248,956,422 bp) window index resident on the card,
-         coarse-mapping 49,152 planted reads.
+         coarse-mapping 49,152 planted reads; then the same genome in two
+         window regions (per-read results equal the single mapper's), and
+         streamed through the window stream's index of 1,048,576 planted
+         reads (phase 7 at chr1 scale).
 
 Any failure raises (non-zero exit).  The last line is the JSON device
 record; the line before it is nvidia-smi's name and power limit; the one
@@ -1090,10 +1103,11 @@ def kernel_wrappers():
             "traceback": traceback}
 
 
-def counted(label, fn):
+def counted(label, fn, path_kernels=None):
     """fn() with the seven kernels' launch counts set to 0 just before
     and read just after: (result, seconds, launches).  Fails when a kernel
-    of the path was never launched, when the path went through the
+    of the path (path_kernels: names of kernel_wrappers(), all seven by
+    default) was never launched, when the path went through the
     unfused striped pass (which builds the striped read tensor and the
     per-column maxima in device memory), the direct shd_best kernel (the
     SHD stage as torch operations around it) or the direct
@@ -1130,7 +1144,7 @@ def counted(label, fn):
             f"{label}: a batch's scores are one sw_forward and one "
             f"sw_reverse launch and no sw_pass: {launches}, sw_pass "
             f"{pass_batched.launches - unfused}")
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in (path_kernels or launches)) <= 0:
         raise AssertionError(f"{label}: a kernel of the path never "
                              f"launched: {launches}")
     launches["shd_best_direct"] = shd_best.launches
@@ -1232,13 +1246,24 @@ def profiled_launches(label, mapper, padded, lens):
     map_reads(with_scores=True) over the pool, under torch.profiler: the
     count per 4,096-read batch, the device time and the card's busy share
     of the call."""
+    return profiled(label, lambda: mapper.map_reads(padded, lens,
+                                                    with_scores=True),
+                    f"map_reads(with_scores=True) of {len(lens)} reads",
+                    -(-len(lens) // mapper.opts.batchsize),
+                    f"{mapper.opts.batchsize}-read batch")
+
+
+def profiled(label, fn, what, n_batches, unit):
+    """Every device launch of one fn() under torch.profiler: the count per
+    batch (`unit`), the device time, the card's busy share of the call and
+    the hand-written kernels by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        mapper.map_reads(padded, lens, with_scores=True)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -1255,11 +1280,9 @@ def profiled_launches(label, mapper, padded, lens):
     own = {k.split("::")[-1].split("(")[0]: (n, round(t / 1e3, 3))
            for k, (n, t) in by_name.items()
            if "(anonymous namespace)::" in k and "at::" not in k}
-    n_batches = -(-len(lens) // mapper.opts.batchsize)
-    log(f"{label} torch.profiler, map_reads(with_scores=True) of "
-        f"{len(lens)} reads: {len(on_device)} device launches "
-        f"({len(on_device) / n_batches:.1f} per {mapper.opts.batchsize}-read "
-        f"batch), device time {device_s * 1e3:.3f} ms, wall under the "
+    log(f"{label} torch.profiler, {what}: {len(on_device)} device launches "
+        f"({len(on_device) / n_batches:.1f} per {unit}), device time "
+        f"{device_s * 1e3:.3f} ms, wall under the "
         f"profiler {wall * 1e3:.3f} ms, card busy {device_s / wall:.4f} of "
         f"the call; most device time: "
         f"{[(k[:48], n, round(t / 1e3, 3)) for k, (n, t) in top]} "
@@ -1346,7 +1369,7 @@ def phase2(tmp):
     per_batch = launches_per_batch("phase2", mapper, padded, lens)
     per_batch["every device launch"] = profiled_launches(
         "phase2", mapper, padded, lens)
-    return launches, per_batch, res, reads, chrom
+    return launches, per_batch, res, reads, chrom, starts, junk
 
 
 def build_mappers(label, genome, flags, devices=("cuda", "cpu")):
@@ -1571,11 +1594,6 @@ def phase4(device="cuda"):
         f"{[round(s, 6) for s in times]} s), caps {AT_SCALE}, "
         f"overflow {r.stats}")
 
-    def fractions(res):
-        mapped = res.orientation != 3
-        concordant = (res.chromosome_id == 0) & (np.abs(
-            res.position.astype(np.int64) - starts) <= 128)
-        return mapped, concordant
     # the flagship (8 Mbp) caps at this scale, for comparison only
     for flag, attr in (("--probeCap", "probe_cap"),
                        ("--candidatesPerRead", "candidates_per_read_cap"),
@@ -1584,11 +1602,343 @@ def phase4(device="cuda"):
                        ("--probeHeadBudget", "probe_head_budget_per_read")):
         setattr(mapper.opts, attr, int(FLAGSHIP[FLAGSHIP.index(flag) + 1]))
     r_flag = mapper.map_reads(padded, lens)
-    m_flag, _ = fractions(r_flag)
+    m_flag, _ = window_fractions(r_flag, starts)
     log(f"phase4 with the flagship caps instead: planted mapped "
         f"{float(m_flag[~junk].mean()):.6f}, overflow {r_flag.stats}")
-    frac = check_fractions("phase4", *fractions(r), junk)
-    return frac
+    check_fractions("phase4", *window_fractions(r, starts), junk)
+    for flag, attr in (("--probeCap", "probe_cap"),
+                       ("--candidatesPerRead", "candidates_per_read_cap"),
+                       ("--shdPairBudget", "shd_pairs_per_read_budget"),
+                       ("--probeTailBudget", "probe_tail_budget_per_read"),
+                       ("--probeHeadBudget", "probe_head_budget_per_read")):
+        setattr(mapper.opts, attr, int(AT_SCALE[AT_SCALE.index(flag) + 1]))
+    return dict(genome=genome, chrom=chrom, padded=padded, lens=lens,
+                results=r, overflowed=overflowed_reads(mapper, padded, lens))
+
+
+WS_KERNELS = ("minhash_stage", "vote", "shd_pairs_best")
+
+
+def window_fractions(res, starts):
+    """(mapped, concordant) of coarse results against reads planted in
+    chromosome 0 at `starts`."""
+    mapped = res.orientation != 3
+    concordant = (res.chromosome_id == 0) & (np.abs(
+        res.position.astype(np.int64) - starts) <= 128)
+    return mapped, concordant
+
+
+RESULT_FIELDS = ("orientation", "hamming", "shift", "chromosome_id",
+                 "position", "global_window_id", "bs_strand")
+
+
+def same_results(label, a, b):
+    """Raise unless the CoarseResults a and b agree on every field and
+    stat."""
+    for f in RESULT_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            raise AssertionError(f"{label}: {f} differs in "
+                                 f"{int((x != y).sum())} of {len(x)} reads")
+    if a.stats != b.stats:
+        raise AssertionError(f"{label}: stats {a.stats} != {b.stats}")
+
+
+def phase7(res, reads, starts, junk):
+    """The window stream (read index resident, the genome's windows
+    streamed through it) at the flagship width: 49,152 planted reads,
+    window_stream_bench.py's options (the flagship's); then card == CPU on
+    a 1 Mbp prefix with 8,192 reads, 3N and --undirectional."""
+    from hashreadmapper_tpu_torch import cli
+    from hashreadmapper_tpu_torch.io.genome import Genome
+    from hashreadmapper_tpu_torch.ops.minhash_kernel import signature_stage
+    from hashreadmapper_tpu_torch.pipeline.window_stream import \
+        WindowStreamMapper
+    genome = res["genome"]
+    opts, _ = cli.options_from_args(FLAGSHIP)
+    lens = np.full(N_READS, READ_LEN, np.int32)
+    torch.cuda.synchronize()
+    signature_stage.launches = 0
+    t0 = time.perf_counter()
+    mapper = WindowStreamMapper(reads, lens, opts, "cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    build_sigs = signature_stage.launches
+    n_win = genome.total_num_windows(opts.kmer_length, opts.window_size)
+    n_batches = sum(1 for _ in genome.iter_window_batches(
+        opts.kmer_length, opts.window_size, opts.batchsize))
+    r, wall, launches = counted("phase7 window stream map_genome",
+                                lambda: mapper.map_genome(genome),
+                                WS_KERNELS)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        mapper.map_genome(genome)
+        times.append(time.perf_counter() - t0)
+    t_map = statistics.median(times)
+    per_batch = {k: launches[k] / n_batches for k in WS_KERNELS}
+    log(f"phase7 window stream, flagship: read index of {N_READS} reads "
+        f"built in {t_build:.4f} s ({build_sigs} signature launches, "
+        f"{mapper.index.num_tables} tables, cuckoo "
+        f"{mapper.index.cuckoo_keys is not None}, "
+        f"{mapper.resident_bytes()} B resident); map_genome of {n_win} "
+        f"windows in {n_batches} batches: first {wall:.4f} s, then "
+        f"{N_READS / t_map:.1f} reads/s and {n_win / t_map:.1f} windows/s "
+        f"(median of 3: {[round(t, 6) for t in times]} s); launches per "
+        f"window batch {per_batch}; overflow {r.stats}")
+    for k in ("pair_budget_overflow", "probe_tail_overflow",
+              "probe_head_overflow"):
+        if r.stats[k]:
+            raise AssertionError(f"phase7: {k} = {r.stats[k]}")
+    per_batch["every device launch"] = profiled(
+        "phase7", lambda: mapper.map_genome(genome),
+        f"map_genome of {n_win} windows", n_batches,
+        f"{opts.batchsize}-window batch")
+    frac = check_fractions("phase7 flagship window stream",
+                           *window_fractions(r, starts), junk)
+    eng = res["mapper"].map_reads(
+        np.pad(reads, ((0, 0), (0, 128 - READ_LEN))), lens)
+    same = (eng.orientation == r.orientation) & (
+        (r.orientation == 3) | ((eng.position == r.position)
+                                & (eng.hamming == r.hamming)))
+    log(f"phase7 against the inverted engine on the same reads: "
+        f"{int(same.sum())} of {N_READS} reads with the same orientation, "
+        f"position and hamming; engine overflow {eng.stats}")
+    del mapper
+
+    # card == CPU: a 1 Mbp prefix, 8,192 reads planted in it
+    rng = np.random.default_rng(71)
+    chrom = np.asarray(genome.bases[0][:1_000_000], np.int8)
+    small = Genome(["chrB"], [ACGT[chrom].tobytes().decode()])
+    n = 8192
+    cases = (("3N", FLAGSHIP, planted_reads(rng, chrom, n, READ_LEN)[0]),
+             ("--undirectional", FLAGSHIP + ["--undirectional"],
+              four_strand_reads(rng, chrom, n, READ_LEN)[0]))
+    for label, flags, rd in cases:
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            o, _ = cli.options_from_args(flags + ["--device", dev])
+            t0 = time.perf_counter()
+            outs[dev] = WindowStreamMapper(
+                rd, np.full(len(rd), READ_LEN, np.int32), o,
+                dev).map_genome(small)
+            log(f"phase7 {label} {dev}: {n} reads against 1 Mbp in "
+                f"{time.perf_counter() - t0:.3f} s")
+        same_results(f"phase7 {label} card == CPU", outs["cuda"],
+                     outs["cpu"])
+        c = outs["cuda"]
+        log(f"phase7 {label} card == CPU: every field and stat identical; "
+            f"mapped {int((c.orientation != 3).sum())} of {n}, strand "
+            f"column set in {int((c.bs_strand != 0).sum())}, overflow "
+            f"{c.stats}")
+    return launches, per_batch, frac
+
+
+def phase7_chr1(chr1):
+    """The window stream at chr1 scale: 1,048,576 planted reads resident,
+    phase 4's 248,956,422 bp genome streamed through, phase 4's caps."""
+    from hashreadmapper_tpu_torch import cli
+    from hashreadmapper_tpu_torch.pipeline.window_stream import \
+        WindowStreamMapper
+    rng = np.random.default_rng(72)
+    n = 1 << 20
+    reads, starts, junk = planted_reads(rng, chr1["chrom"], n, READ_LEN)
+    opts, _ = cli.options_from_args(FLAGSHIP + AT_SCALE)
+    genome = chr1["genome"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mapper = WindowStreamMapper(reads, np.full(n, READ_LEN, np.int32), opts,
+                                "cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r = mapper.map_genome(genome)
+    t_map = time.perf_counter() - t0
+    n_win = genome.total_num_windows(opts.kmer_length, opts.window_size)
+    log(f"phase7 chr1 scale: read index of {n} reads built in "
+        f"{t_build:.3f} s ({mapper.index.num_tables} tables, cuckoo "
+        f"{mapper.index.cuckoo_keys is not None}), read index and reads "
+        f"{mapper.resident_bytes()} B resident, map_genome of {n_win} "
+        f"windows {t_map:.3f} s ({n / t_map:.1f} reads/s, "
+        f"{n_win / t_map:.1f} windows/s), max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B, caps {AT_SCALE}, overflow "
+        f"{r.stats}")
+    return check_fractions("phase7 chr1 window stream",
+                           *window_fractions(r, starts), junk)
+
+
+def overflowed_reads(mapper, padded, lens):
+    """[N] bool: the reads of which a probe (any table) finds more windows
+    than the probe cap in `mapper`'s index, or whose vote keeps more than
+    the candidate cap (directional 3N).  Only such a read can map otherwise
+    in regions: a region's index holds fewer windows a key and a region's
+    vote fewer candidates, so a region keeps windows that the whole
+    genome's caps dropped."""
+    from hashreadmapper_tpu_torch.index import minhash_index as mi
+    from hashreadmapper_tpu_torch.ops import minhash
+    opts, idx = mapper.opts, mapper.index
+    out = []
+    for s in range(0, len(lens), opts.batchsize):
+        rb = torch.from_numpy(padded[s:s + opts.batchsize]).to(mapper.device)
+        rl = torch.from_numpy(lens[s:s + opts.batchsize]).to(mapper.device)
+        sigs, valid = minhash.signatures_3n_pair(rb, rl, opts.kmer_length,
+                                                 mapper._hash_ids_dev)
+        cand, counts, _, _ = mi.probe_tables(
+            idx.keys, idx.offsets, idx.values, idx.num_keys, sigs, valid,
+            opts.probe_cap, bucket_start=idx.bucket_start,
+            probe_steps=idx.probe_steps)
+        _, _, kept = mi.vote_candidates_fnc_auto(
+            cand, opts.min_table_hits, opts.candidates_per_read_cap)
+        out.append(((counts > opts.probe_cap).any(dim=0)
+                    | (kept > opts.candidates_per_read_cap)).cpu().numpy())
+    return np.concatenate(out)
+
+
+def sam_rows(path):
+    """{read id: SAM row} of a SAM file."""
+    with open(path) as fh:
+        return {int(ln.split("\t", 1)[0]): ln for ln in fh.read().split("\n")
+                if ln and not ln.startswith("@")}
+
+
+def regions_against_single(label, differs, over, stats):
+    """The check of a region run against the single mapper's: every read
+    that differs is one of the reads with a probe or a vote over its cap
+    (overflowed_reads), and no budget of the regions dropped a pair or a
+    probe."""
+    bad = np.nonzero(differs & ~over)[0]
+    log(f"{label}: {int(differs.sum())} of {len(differs)} reads differ from "
+        f"the single mapper's, all among its {int(over.sum())} reads with a "
+        f"probe or a vote over its cap" if not len(bad) else
+        f"{label}: reads {bad[:10].tolist()} differ without a probe or a "
+        "vote over its cap")
+    if len(bad):
+        raise AssertionError(f"{label}: {len(bad)} reads without a probe or a "
+                             "vote over its cap differ from the single "
+                             "mapper's")
+    for k in ("pair_budget_overflow", "probe_tail_overflow",
+              "probe_head_overflow"):
+        if stats[k]:
+            raise AssertionError(f"{label}: {k} = {stats[k]} in the regions")
+
+
+def phase8(tmp, res, reads):
+    """--regions 4 through the flagship CLI: a window partition of the one
+    chromosome, four CoarseMappers without cuckoo tables, the fused STEP 2
+    in each.  At the flagship caps a read differs from phase 2's
+    single-mapper SAM only where one of its probes finds more windows than
+    the cap in the whole genome (a region's index holds fewer a key) or its
+    vote more candidates; at a probe cap that no probe exceeds, SAM and VCF
+    are byte for byte the single mapper's."""
+    from hashreadmapper_tpu_torch import cli
+    from hashreadmapper_tpu_torch.parallel.region_sharded import \
+        RegionShardedMapper
+    argv = FLAGSHIP + ["--genomefile", os.path.join(tmp, "g.fa"), "-i",
+                       os.path.join(tmp, "reads.fq.gz")]
+    out = os.path.join(tmp, "out_regions")
+    res_r, wall, launches = counted(
+        "phase8 --regions 4 CLI run",
+        lambda: cli.run(argv + ["--regions", "4", "-o", out]))
+    mapper = res_r["mapper"]
+    if not isinstance(mapper, RegionShardedMapper) or mapper.n_regions != 4:
+        raise AssertionError("phase8: --regions 4 did not build four regions")
+    if any(m.index.cuckoo_keys is not None for m in mapper.mappers):
+        raise AssertionError("phase8: four regions on one card built a "
+                             "cuckoo table")
+    n_batches = -(-N_READS // mapper.opts.batchsize) * mapper.n_regions
+    per_batch = {k: v / n_batches for k, v in launches.items()
+                 if k in kernel_wrappers()}
+    log(f"phase8 --regions 4 CLI run: {wall:.3f} s, phase timers "
+        f"{res_r['timers']}, regions "
+        f"{[[(s.chrom_id, s.win_start, s.win_stop) for s in r] for r in mapper.regions]}, "
+        f"resident bytes per region "
+        f"{[m.resident_bytes() for m in mapper.mappers]}, stats "
+        f"{res_r['results'].stats}; launches per read batch of a region "
+        f"{per_batch}")
+    single_rows = sam_rows(os.path.join(tmp, "out.SAM"))
+    region_rows = sam_rows(out + ".SAM")
+    differs = np.array([single_rows[i] != region_rows[i]
+                        for i in range(N_READS)])
+    lens = np.full(N_READS, READ_LEN, np.int32)
+    padded = np.zeros((N_READS, 128), np.int8)
+    padded[:, :READ_LEN] = reads
+    over = overflowed_reads(res["mapper"], padded, lens)
+    with open(os.path.join(tmp, "out.VCF"), "rb") as a, \
+            open(out + ".VCF", "rb") as b:
+        vcf_same = a.read() == b.read()
+    log(f"phase8 --regions 4 at the flagship caps: SAM rows of "
+        f"{int(differs.sum())} reads differ, VCF "
+        f"{'byte for byte the same' if vcf_same else 'differs'}")
+    regions_against_single("phase8 --regions 4 SAM", differs, over,
+                           res_r["results"].stats)
+
+    # a probe cap that no probe of these reads exceeds: byte for byte
+    cap = ["--probeCap", "256"]
+    outs = {}
+    for label, extra in (("single", []), ("--regions 4", ["--regions", "4"])):
+        outs[label] = os.path.join(tmp, f"out_cap_{len(extra)}")
+        t0 = time.perf_counter()
+        r = cli.run(argv + cap + extra + ["-o", outs[label]])
+        log(f"phase8 {label} with {cap}: {time.perf_counter() - t0:.3f} s, "
+            f"stats {r['results'].stats}")
+        st = r["results"].stats
+        if label == "single" and (st["probe_overflow"] or st["vote_overflow"]):
+            raise AssertionError(f"phase8: probes or votes over the caps "
+                                 f"remain at {cap}: {st}")
+    for ext in (".SAM", ".VCF"):
+        with open(outs["single"] + ext, "rb") as a, \
+                open(outs["--regions 4"] + ext, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"phase8: --regions 4 {ext} differs "
+                                     f"from the single mapper's at {cap}")
+    log(f"phase8 SAM and VCF at {cap}: --regions 4 == single, byte for byte")
+    return launches, per_batch
+
+
+def phase8_chr1(chr1):
+    """Phase 4's chr1 genome in two window regions on the card (cuckoo
+    tables in both): every read without a probe or a vote over its cap in
+    phase 4's single mapper has its results, and global_window_id64 its
+    global_window_id."""
+    from hashreadmapper_tpu_torch import cli
+    from hashreadmapper_tpu_torch.parallel.region_sharded import \
+        RegionShardedMapper
+    opts, _ = cli.options_from_args(FLAGSHIP + AT_SCALE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mapper = RegionShardedMapper(chr1["genome"], opts, 2, partition="window")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    r, wall, launches = counted(
+        "phase8 chr1 two regions map_reads",
+        lambda: mapper.map_reads(chr1["padded"], chr1["lens"]), WS_KERNELS)
+    single = chr1["results"]
+    differs = np.zeros(len(single.orientation), bool)
+    for f in RESULT_FIELDS:
+        differs |= getattr(r, f) != getattr(single, f)
+    regions_against_single("phase8 chr1 two regions", differs,
+                           chr1["overflowed"], r.stats)
+    mapped = single.orientation != 3
+    same = ~differs & mapped
+    if not np.array_equal(r.global_window_id64[same],
+                          single.global_window_id[same].astype(np.int64)):
+        raise AssertionError("phase8: global_window_id64 differs from the "
+                             "single mapper's global_window_id")
+    log(f"phase8 chr1 scale, two window regions: built in {t_build:.3f} s "
+        f"({[round(x, 3) for x in mapper.build_seconds]} s a region), "
+        f"resident bytes per region "
+        f"{[m.resident_bytes() for m in mapper.mappers]}, cuckoo "
+        f"{[m.index.cuckoo_keys is not None for m in mapper.mappers]}, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B, "
+        f"map_reads {wall:.3f} s; stats {r.stats} against the single "
+        f"mapper's {single.stats} (the probe cap counts per region); "
+        f"planted-read results of the mapped reads equal: "
+        f"{int(same.sum())}, global_window_id64 == global_window_id there")
+    return launches
 
 
 def main():
@@ -1601,13 +1951,18 @@ def main():
     smi = phase0()
     records = phase1()
     with tempfile.TemporaryDirectory() as tmp:
-        launches, per_batch, res, reads, chrom = phase2(tmp)
+        launches, per_batch, res, reads, chrom, starts, junk = phase2(tmp)
         mappers = phase3(res, reads)
         launches_und, per_batch_und, _, _ = phase5(tmp, res, chrom, mappers)
         del mappers
         launches_par, _ = phase6(tmp, res, chrom)
+        launches_ws, per_batch_ws, _ = phase7(res, reads, starts, junk)
+        launches_reg, per_batch_reg = phase8(tmp, res, reads)
     del res
-    phase4()
+    chr1 = phase4()
+    phase8_chr1(chr1)
+    phase7_chr1(chr1)
+    del chr1
     check_no_jax()
     src = "hashreadmapper_tpu_torch/csrc/"
     ref = "hashreadmapper_tpu/ops/"
@@ -1672,7 +2027,13 @@ def main():
                 launches_undirectional=total(launches_und),
                 launches_parity=total(launches_par),
                 launches_per_batch=total(per_batch),
-                launches_per_batch_undirectional=total(per_batch_und))
+                launches_per_batch_undirectional=total(per_batch_und),
+                launches_window_stream=sum(launches_ws.get(n, 0)
+                                           for n in names),
+                launches_per_window_batch=sum(per_batch_ws.get(n, 0)
+                                              for n in names),
+                launches_regions=total(launches_reg),
+                launches_per_region_batch=total(per_batch_reg))
         else:
             # no caller on the main path: counted over phase 1's
             # cross-checks against the kernels that superseded it
@@ -1706,7 +2067,9 @@ def main():
         "index_build_signatures": INDEX_SIGNATURES,
         "device_launches_per_batch": per_batch["every device launch"],
         "device_launches_per_batch_undirectional":
-            per_batch_und["every device launch"]}))
+            per_batch_und["every device launch"],
+        "device_launches_per_window_batch":
+            per_batch_ws["every device launch"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

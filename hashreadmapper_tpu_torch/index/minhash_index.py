@@ -264,7 +264,8 @@ def probe_tables(index_keys, index_offsets, index_values, index_num_keys,
                  sigs, sig_valid, probe_cap: int, dropped_keys=None,
                  bucket_start=None, probe_steps: int = 0,
                  tail_budget: int = 0, head_budget: int = 0, cuckoo=None,
-                 cuckoo_bits: int = 0, cuckoo_seeds=(0, 0)):
+                 cuckoo_bits: int = 0, cuckoo_seeds=(0, 0),
+                 max_values_per_key: int = 0):
     """Capped CSR lookup of [N, F] query signatures, in the probe's native
     layout: (cand [F, N, probe_cap] ascending ids, SENTINEL where empty;
     counts [F, N] true match counts; tail_drops; head_drops).
@@ -275,12 +276,18 @@ def probe_tables(index_keys, index_offsets, index_values, index_num_keys,
     slots only for the <= tail_budget probes with count > 4; head_budget
     > 0 (with the two tiers) also compacts the found probes before the
     head gather.  Both are exact while their drop counter is 0.
+    max_values_per_key > 0 finds nothing for a key carried by more values
+    (the read index's drop-all rule, evaluated at probe time); it needs
+    the exact counts of the binary search, not the cuckoo payload's.
     """
     n, f = sigs.shape
     sigs_t = sigs.T.contiguous()                                  # [F, N]
     if cuckoo is not None:
         if probe_cap >= 1023:
             raise ValueError("cuckoo payload counts saturate at 1023")
+        if max_values_per_key > 0:
+            raise ValueError("max_values_per_key needs exact counts; the "
+                             "cuckoo payload saturates them at 1023")
         c_keys, c_payload = cuckoo
         sh = 32 - cuckoo_bits
         p1 = u64.mul_lo32(sigs_t ^ cuckoo_seeds[0], 0x9E3779B1) >> sh
@@ -302,6 +309,8 @@ def probe_tables(index_keys, index_offsets, index_values, index_num_keys,
                  & (idx < index_num_keys[:, None]) & sig_valid[None, :])
         off0 = torch.gather(index_offsets, 1, idx_c)
         cnt = torch.gather(index_offsets, 1, idx_c + 1) - off0
+        if max_values_per_key > 0:
+            found = found & (cnt <= max_values_per_key)
     if dropped_keys is not None:
         found = found & ~_dropped_hit(dropped_keys, sigs_t)
     counts = torch.where(found, cnt, torch.zeros_like(cnt))        # [F, N]

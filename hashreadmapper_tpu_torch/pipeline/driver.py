@@ -2,11 +2,13 @@
 (counterpart of hashreadmapper_tpu/pipeline/driver.py).
 
 STEP 1 runs on the CoarseMapper on the given device, in parity mode
-(canonical k-mers), --threeN or --threeN --undirectional.  STEP 2 runs
-there too (mapping.run_cssw: score passes and banded traceback fused into
-the coarse step per chunk when the reads are pipelined, in staged chunks
-otherwise), with the native CIGAR finish, rescore and records on the
-host.  opts.step2_device = False (set in code; no flag) takes the serial
+(canonical k-mers), --threeN or --threeN --undirectional; with --regions N,
+or for a genome of SINGLE_MAPPER_BASE_CAP bases or more, on a
+RegionShardedMapper (one CoarseMapper a region, all on that device).
+STEP 2 runs there too (mapping.run_cssw: score passes and banded traceback
+fused into the coarse step per chunk when the reads are pipelined, in
+staged chunks otherwise), with the native CIGAR finish, rescore and
+records on the host.  opts.step2_device = False (set in code; no flag) takes the serial
 host path instead.  STEP 3 and the SAM writer are the native bulk
 emitters.
 """
@@ -22,6 +24,8 @@ from ..config import MapperType, ProgramOptions, SequencePairType
 from ..io.genome import Genome
 from ..io.readstore import ReadStorage
 from ..utils.progress import ProgressReporter
+from ..parallel.region_sharded import (SINGLE_MAPPER_BASE_CAP,
+                                       RegionShardedMapper)
 from ..utils.timers import PhaseTimers
 from . import mapping, mapping_edlib
 from .engine import CoarseMapper, CoarseResults
@@ -29,19 +33,21 @@ from .mapping import run_cssw
 from .records import MappingRecords, emit_sam, emit_vcf
 
 
-def _pipelined_sw(mapper: CoarseMapper, bases: np.ndarray,
+def _pipelined_sw(mapper, bases: np.ndarray,
                   reads: ReadStorage, genome: Genome, genome_rc: Genome,
                   opts: ProgramOptions):
     """Chunked coarse map on the device + STEP 2 on two workers: the
     workers finish chunk i while the main thread maps chunk i+1.  With
     device STEP 2 the coarse step also scores and traces back each chunk
-    (map_reads with_scores), so the workers only run host code.  Returns
-    (results, MappingRecords, or AlignerArguments with global read ids)."""
+    (map_reads with_scores), so the workers only run host code.  `mapper`
+    is a CoarseMapper or a RegionShardedMapper.  Returns (results,
+    MappingRecords, or AlignerArguments with global read ids)."""
     n = reads.num_reads
     chunk = opts.step2_pipeline_chunk
     # the parity-mode key-drop rule is a whole-dataset property; it must
-    # precede the per-chunk mapping
-    mapper.ensure_read_drops(bases, reads.lengths)
+    # precede the per-chunk mapping (regions apply no drop)
+    if hasattr(mapper, "ensure_read_drops"):
+        mapper.ensure_read_drops(bases, reads.lengths)
     progress = ProgressReporter(n, label="reads mapped+aligned",
                                 enabled=opts.show_progress)
     res_parts, futs = [], []
@@ -80,11 +86,13 @@ def _pipelined_sw(mapper: CoarseMapper, bases: np.ndarray,
         for k, v in r.stats.items():
             stats[k] = stats.get(k, 0) + v
     cat = lambda field: np.concatenate([getattr(r, field) for r in res_parts])
+    g64 = all(r.global_window_id64 is not None for r in res_parts)
     results = CoarseResults(
         orientation=cat("orientation"), hamming=cat("hamming"),
         shift=cat("shift"), chromosome_id=cat("chromosome_id"),
         position=cat("position"), global_window_id=cat("global_window_id"),
-        stats=stats, bs_strand=cat("bs_strand"))
+        stats=stats, bs_strand=cat("bs_strand"),
+        global_window_id64=cat("global_window_id64") if g64 else None)
     return results, mappingout
 
 
@@ -118,12 +126,26 @@ def run_pipeline(opts: ProgramOptions, device,
         with timers.phase("build_minhasher"):
             if opts.max_read_length < reads.sequence_length_upper_bound():
                 opts.max_read_length = reads.sequence_length_upper_bound()
-            mapper = CoarseMapper(genome, opts, device,
-                                  load_index_from=opts.load_hashtables_from)
-            if opts.save_hashtables_to:
-                mapper.save_index(opts.save_hashtables_to)
-            print(f"window index: {mapper.index.memory_bytes()} bytes, "
-                  f"{mapper.table.num_windows} windows")
+            total_bases = sum(genome.chromosome_length(c)
+                              for c in range(genome.num_chromosomes))
+            if opts.num_regions > 1 or total_bases >= SINGLE_MAPPER_BASE_CAP:
+                n_regions = opts.num_regions or max(
+                    1, -(-total_bases // SINGLE_MAPPER_BASE_CAP))
+                mapper = RegionShardedMapper(genome, opts, n_regions,
+                                             devices=[device])
+                idx_bytes = sum(m.index.memory_bytes()
+                                for m in mapper.mappers)
+                n_windows = sum(m.table.num_windows for m in mapper.mappers)
+                print(f"window index: {idx_bytes} bytes, {n_windows} windows "
+                      f"in {mapper.n_regions} regions")
+            else:
+                mapper = CoarseMapper(
+                    genome, opts, device,
+                    load_index_from=opts.load_hashtables_from)
+                if opts.save_hashtables_to:
+                    mapper.save_index(opts.save_hashtables_to)
+                print(f"window index: {mapper.index.memory_bytes()} bytes, "
+                      f"{mapper.table.num_windows} windows")
 
         pipelined = (opts.mapper_type == MapperType.SW
                      and opts.step2_pipeline_chunk > 0

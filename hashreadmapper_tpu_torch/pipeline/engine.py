@@ -11,7 +11,9 @@ GA spaces, 2F tables) and --threeN --undirectional (the 2F tables probed
 a second time with the mirrored PBAT query spaces, and a second,
 mirrored SHD evaluation).  One device; every tensor lives on the mapper's
 `device` (a CUDA device runs the hand-written kernels, the CPU their
-plain versions, with identical results).
+plain versions, with identical results).  A mapper built over segments
+(parallel/segments.py) indexes and stages only their window spans; the
+region-sharded mapper (parallel/region_sharded.py) holds one per region.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from ..index import minhash_index as mi
 from ..io.genome import Genome
 from ..ops import bandtb, encode, minhash, shd, swdev
 from ..ops.shd_kernel import pack_genome_planes
+from ..parallel.segments import segment_base_span
 from ..utils.progress import ProgressReporter
 
 SENTINEL = 0xFFFFFFFF
@@ -46,8 +49,6 @@ def unsupported(what: str, item: str):
 def check_supported(opts: ProgramOptions) -> None:
     if opts.mesh_data is not None or opts.mesh_table is not None:
         raise unsupported("--mesh", "Queue 1 item 15")
-    if opts.num_regions > 1:
-        raise unsupported("--regions", "Queue 1 item 14")
 
 
 @dataclasses.dataclass
@@ -74,19 +75,46 @@ class CoarseResults:
     global_window_id: np.ndarray   # [N] uint32 (SENTINEL when unmapped)
     stats: Dict[str, int]
     bs_strand: Optional[np.ndarray] = None
+    # the full-width window ordinal of the region-sharded mapper (a genome
+    # of 2**31 bases or more has ordinals beyond uint32); None otherwise
+    global_window_id64: Optional[np.ndarray] = None
 
 
-def build_window_table(genome: Genome, device) -> WindowTable:
-    """Stage the genome and its packed bit planes on `device`."""
-    lens = [genome.chromosome_length(c) for c in range(genome.num_chromosomes)]
-    total = sum(lens)
+def staged_spans(genome: Genome, segments, opts: Optional[ProgramOptions]):
+    """(chromosome id, lo, hi) of every staged base range: whole
+    chromosomes, or each segment's span with its margins."""
+    if segments is None:
+        return [(c, 0, genome.chromosome_length(c))
+                for c in range(genome.num_chromosomes)]
+    margin = opts.max_read_length
+    return [(seg.chrom_id,
+             *segment_base_span(genome, opts, seg, margin))
+            for seg in segments]
+
+
+def build_window_table(genome: Genome, device, segments=None,
+                       opts: Optional[ProgramOptions] = None) -> WindowTable:
+    """Stage the genome (or only `segments` of it, plus margins) and its
+    packed bit planes on `device`.  With segments the "chromosome" axis
+    indexes segments: chrom_offset holds VIRTUAL offsets (staged start
+    minus true start, negative where a span starts inside its chromosome)
+    and chrom_len the TRUE chromosome lengths, so chrom_offset[s] + a true
+    position lands in the staged bases and the extension math is that of
+    an uncut mapper."""
+    spans = staged_spans(genome, segments, opts)
+    total = sum(hi - lo for _, lo, hi in spans)
     if total >= 2**31:
-        raise unsupported(f"a genome of {total} bases (>= 2**31)",
-                          "Queue 1 item 14")
-    offsets = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+        raise ValueError(
+            f"a single mapper stages fewer than 2**31 bases ({total} asked); "
+            "larger genomes go through RegionShardedMapper's window "
+            "partition (parallel/region_sharded.py, --regions)")
+    sizes = np.array([hi - lo for _, lo, hi in spans], dtype=np.int64)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    offsets = starts - np.array([lo for _, lo, _ in spans], dtype=np.int64)
+    lens = [genome.chromosome_length(c) for c, _, _ in spans]
     concat = torch.from_numpy(np.concatenate(
-        [genome.bases[c].astype(np.int8)
-         for c in range(genome.num_chromosomes)])).to(device)
+        [genome.bases[c][lo:hi].astype(np.int8)
+         for c, lo, hi in spans])).to(device)
     g_hi, g_lo = pack_genome_planes(concat)
     return WindowTable(
         genome_concat=concat, genome_hi=g_hi, genome_lo=g_lo,
@@ -123,6 +151,60 @@ def window_bases_device(genome_concat: torch.Tensor, gstart: torch.Tensor,
     return genome_concat[idx.clamp(max=genome_concat.shape[0] - 1)]
 
 
+def compact_pairs(pair_valid: torch.Tensor, n_rows: int, kcap: int,
+                  per_row_budget: int):
+    """Pair compaction of a [n_rows * kcap] candidate grid: with 0 <
+    per_row_budget < kcap the valid pairs are packed, in grid order, into
+    n_rows * per_row_budget slots and pairs beyond them dropped.  Returns
+    (pair_sel [P] grid index of each slot, sel_valid [P], pair_drops,
+    compact)."""
+    dev = pair_valid.device
+    nk = n_rows * kcap
+    if not 0 < per_row_budget < kcap:
+        return (torch.arange(nk, device=dev), pair_valid,
+                torch.zeros((), dtype=torch.int64, device=dev), False)
+    budget = n_rows * per_row_budget
+    rank = torch.cumsum(pair_valid.to(torch.int64), dim=0) - 1
+    n_valid = pair_valid.sum()
+    slot = torch.where(pair_valid & (rank < budget), rank,
+                       torch.full_like(rank, budget))
+    pair_sel = torch.zeros(budget + 1, dtype=torch.int64, device=dev).scatter_(
+        0, slot, torch.arange(nk, device=dev))[:budget]
+    sel_valid = torch.arange(budget, device=dev) < n_valid
+    return pair_sel, sel_valid, (n_valid - budget).clamp(min=0), True
+
+
+def pair_spreader(pair_sel, sel_valid, nk: int):
+    """spread(x, fill): compact_pairs' slot values x back on the [nk]
+    grid, `fill` where no slot landed."""
+    tgt = torch.where(sel_valid, pair_sel, torch.full_like(pair_sel, nk))
+
+    def spread(x: torch.Tensor, fill):
+        buf = torch.full((nk + 1,), fill, dtype=x.dtype, device=x.device)
+        buf[tgt] = x
+        return buf[:nk]
+    return spread
+
+
+def best_of_spaces(eval_pairs, undirectional: bool):
+    """(hamming, shift, orientation, strand) per pair: the directional
+    evaluation, and under undirectional the mirrored (PBAT) one where it
+    is not NONE and the directional one is NONE or has strictly larger
+    Hamming (strand 1 there)."""
+    res = eval_pairs(False)
+    ham, shf, ori = res.hamming, res.shift, res.orientation
+    strand = torch.zeros_like(ham)
+    if undirectional:
+        res_u = eval_pairs(True)
+        better_u = (res_u.orientation != shd.NONE) & (
+            (ori == shd.NONE) | (res_u.hamming < ham))
+        ham = torch.where(better_u, res_u.hamming, ham)
+        shf = torch.where(better_u, res_u.shift, shf)
+        ori = torch.where(better_u, res_u.orientation, ori)
+        strand = better_u.to(strand.dtype)
+    return ham, shf, ori, strand
+
+
 def coarse_pairs_best(ids, read_bases, read_len, opts: ProgramOptions,
                       genome_hi, genome_lo, win_pos, win_chrom,
                       chrom_offset, chrom_len):
@@ -144,23 +226,8 @@ def coarse_pairs_best(ids, read_bases, read_len, opts: ProgramOptions,
     pair_valid = gwin != SENTINEL
     gwin_full = torch.where(pair_valid, gwin, torch.zeros_like(gwin))
     nk = b * kcap
-    kb = opts.shd_pairs_per_read_budget
-    compact = 0 < kb < kcap
-    if compact:
-        budget = b * kb
-        rank = torch.cumsum(pair_valid.to(torch.int64), dim=0) - 1
-        n_valid = pair_valid.sum()
-        slot = torch.where(pair_valid & (rank < budget), rank,
-                           torch.full_like(rank, budget))
-        pair_sel = torch.zeros(budget + 1, dtype=torch.int64,
-                               device=dev).scatter_(
-            0, slot, torch.arange(nk, device=dev))[:budget]
-        sel_valid = torch.arange(budget, device=dev) < n_valid
-        pair_drops = (n_valid - budget).clamp(min=0)
-    else:
-        pair_sel = torch.arange(nk, device=dev)
-        sel_valid = pair_valid
-        pair_drops = torch.zeros((), dtype=torch.int64, device=dev)
+    pair_sel, sel_valid, pair_drops, compact = compact_pairs(
+        pair_valid, b, kcap, opts.shd_pairs_per_read_budget)
 
     gwin_c = gwin_full[pair_sel]
     ridx = pair_sel // kcap
@@ -183,25 +250,10 @@ def coarse_pairs_best(ids, read_bases, read_len, opts: ProgramOptions,
             loc.length, loc.left, sel_valid, params,
             three_n=opts.three_n_seeding, undirectional=undirectional)
 
-    res = eval_pairs(False)
-    res_ham, res_shf, res_ori = res.hamming, res.shift, res.orientation
-    res_strand = torch.zeros_like(res_ham)
-    if opts.undirectional:
-        res_u = eval_pairs(True)
-        better_u = (res_u.orientation != shd.NONE) & (
-            (res_ori == shd.NONE) | (res_u.hamming < res_ham))
-        res_ham = torch.where(better_u, res_u.hamming, res_ham)
-        res_shf = torch.where(better_u, res_u.shift, res_shf)
-        res_ori = torch.where(better_u, res_u.orientation, res_ori)
-        res_strand = better_u.to(res_strand.dtype)
-
+    res_ham, res_shf, res_ori, res_strand = best_of_spaces(
+        eval_pairs, opts.undirectional)
     if compact:
-        tgt = torch.where(sel_valid, pair_sel, torch.full_like(pair_sel, nk))
-
-        def spread(x, fill):
-            buf = torch.full((nk + 1,), fill, dtype=x.dtype, device=dev)
-            buf[tgt] = x
-            return buf[:nk]
+        spread = pair_spreader(pair_sel, sel_valid, nk)
         res_ham, res_shf = spread(res_ham, 0), spread(res_shf, 0)
         res_ori = spread(res_ori, shd.NONE)
         res_strand = spread(res_strand, 0)
@@ -236,14 +288,19 @@ def coarse_pairs_best(ids, read_bases, read_len, opts: ProgramOptions,
             out_strand, pair_drops)
 
 
-def build_genome_s2(genome: Genome) -> np.ndarray:
-    """[G] int8 STEP-2 genome codes 0..4, chromosomes concatenated as in
-    the window table.  Unlike genome_concat, N stays code 4
-    (align.sw.TRANSLATE), which the score passes treat as a mismatch.
-    The JAX package nibble-packs the same codes to work around TPU
-    gathers (engine.build_genome_s2); here they stay one byte each."""
-    return np.concatenate([sw.TRANSLATE[np.asarray(a)]
-                           for a in genome.seqs_ascii]).astype(np.int8)
+def build_genome_s2(genome: Genome, segments=None,
+                    opts: Optional[ProgramOptions] = None) -> np.ndarray:
+    """[G] int8 STEP-2 genome codes 0..4 of exactly the spans the window
+    table stages (with segments: each segment's span with its margins), so
+    that the table's chrom_offset indexes it too.  Unlike genome_concat, N
+    stays code 4 (align.sw.TRANSLATE), which the score passes treat as a
+    mismatch.  The JAX package nibble-packs the same codes to work around
+    TPU gathers (engine.build_genome_s2); here they stay one byte each."""
+    return np.concatenate([sw.TRANSLATE[np.asarray(genome.seqs_ascii[c])
+                                        [lo:hi]]
+                           for c, lo, hi in staged_spans(genome, segments,
+                                                         opts)]
+                          ).astype(np.int8)
 
 
 def fused_step2_scores(opts: ProgramOptions, chrom_offset, chrom_len,
@@ -272,7 +329,7 @@ def fused_step2_scores(opts: ProgramOptions, chrom_offset, chrom_len,
     wl = torch.where(pos + ws < clen, ws, clen - pos).to(torch.int32)
     iw = torch.arange(ws, device=dev)[:, None]
     gidx = (chrom_offset[chrom] + pos)[None, :] + iw
-    win_t = genome_s2[gidx.clamp(max=genome_s2.shape[0] - 1)]
+    win_t = genome_s2[gidx.clamp(0, genome_s2.shape[0] - 1)]
     win_t = torch.where(iw < wl, win_t, 4)
 
     def collapse(m):
@@ -299,23 +356,38 @@ def fused_step2_scores(opts: ProgramOptions, chrom_offset, chrom_len,
 
 class CoarseMapper:
     """The window index of one genome on one device, and the coarse
-    mapping of read batches against it."""
+    mapping of read batches against it.
+
+    segments (parallel/segments.py): index and stage only these window
+    spans; results then carry SEGMENT indices in chromosome_id and
+    LOCAL window ordinals in global_window_id, which the region-sharded
+    mapper converts back.  build_direct_probe=False keeps the binary-search
+    probe (no cuckoo table), for several regions sharing one device."""
 
     supports_fused_scores = True
 
     def __init__(self, genome: Genome, opts: ProgramOptions, device,
-                 sig_batch: int = 4096, load_index_from: str = ""):
+                 sig_batch: int = 4096, load_index_from: str = "",
+                 segments=None, build_direct_probe: bool = True):
         opts.validate()
         check_supported(opts)
         self.opts = opts
         self.genome = genome
         self.device = torch.device(device)
-        n_win = genome.total_num_windows(opts.kmer_length, opts.window_size)
+        self.segments = segments
+        if segments is None:
+            n_win = genome.total_num_windows(opts.kmer_length,
+                                             opts.window_size)
+        else:
+            self.seg_local_base = np.concatenate(
+                [[0], np.cumsum([s.num_windows() for s in segments])]
+            ).astype(np.int64)
+            n_win = int(self.seg_local_base[-1])
         self.hash_ids = np.arange(plan_num_hash_functions(opts, n_win),
                                   dtype=np.uint32)
         self._hash_ids_dev = torch.from_numpy(
             self.hash_ids.astype(np.int64)).to(self.device)
-        self.table = build_window_table(genome, self.device)
+        self.table = build_window_table(genome, self.device, segments, opts)
         win_pos, win_chrom, _ = self._window_geometry()
         self.table.win_pos = torch.from_numpy(win_pos).to(self.device)
         self.table.win_chrom = torch.from_numpy(win_chrom).to(self.device)
@@ -327,7 +399,7 @@ class CoarseMapper:
         else:
             self.index = self._build_window_index(sig_batch)
         self.index.build_buckets()
-        if opts.probe_cap < 1023:
+        if opts.probe_cap < 1023 and build_direct_probe:
             self.index.build_cuckoo()
         self._genome_s2 = None
         # dropped-keys mask of the read set (parity mode); None until
@@ -336,14 +408,22 @@ class CoarseMapper:
 
     # -- index construction ------------------------------------------------
     def _window_geometry(self):
+        """(win_pos, win_chrom, win_len) of every indexed window: TRUE
+        positions and lengths; win_chrom indexes the segments of a
+        segmented mapper."""
         k, ws = self.opts.kmer_length, self.opts.window_size
+        if self.segments is None:
+            spans = [(c, c, 0, self.genome.num_windows_in_chromosome(
+                c, k, ws)) for c in range(self.genome.num_chromosomes)]
+        else:
+            spans = [(s, seg.chrom_id, seg.win_start, seg.win_stop)
+                     for s, seg in enumerate(self.segments)]
         pos_l, chrom_l, len_l = [], [], []
-        for c in range(self.genome.num_chromosomes):
+        for axis, c, w0, w1 in spans:
             clen = self.genome.chromosome_length(c)
-            n = self.genome.num_windows_in_chromosome(c, k, ws)
-            p = np.arange(n, dtype=np.int64) * self.opts.window_stride
+            p = np.arange(w0, w1, dtype=np.int64) * self.opts.window_stride
             pos_l.append(p)
-            chrom_l.append(np.full(n, c, dtype=np.int64))
+            chrom_l.append(np.full(w1 - w0, axis, dtype=np.int64))
             len_l.append(np.minimum(clen - p, ws))
         return (np.concatenate(pos_l), np.concatenate(chrom_l),
                 np.concatenate(len_l))
@@ -543,26 +623,22 @@ class CoarseMapper:
     def genome_s2(self) -> torch.Tensor:
         """The STEP-2 genome codes on the device, staged at first use."""
         if self._genome_s2 is None:
-            self._genome_s2 = torch.from_numpy(
-                build_genome_s2(self.genome)).to(self.device)
+            self._genome_s2 = torch.from_numpy(build_genome_s2(
+                self.genome, self.segments, self.opts)).to(self.device)
         return self._genome_s2
 
-    def map_reads(self, read_bases: np.ndarray, read_lengths: np.ndarray,
-                  with_scores: bool = False):
-        """Map all reads: [N, L] int8 padded bases, [N] lengths.
-
-        with_scores: also run the fused STEP 2 per batch and return
-        (results, (scores [10, 2N] int16, tb_ops [2N, 48] uint8,
-        tb_status [2N] int8)), or (results, scores) when
-        opts.step2_device_traceback is False."""
+    def map_reads_packed(self, read_bases: np.ndarray,
+                         read_lengths: np.ndarray, with_scores: bool = False):
+        """The coarse step over all reads with the key drops as they stand
+        (map_reads sets them first): (packed [N, 7] int32 rows as
+        _map_batch packs them, overflow [5] int64, and with_scores the
+        fused STEP-2 bundle (scores [10, 2N] int16, tb_ops [2N, E] uint8,
+        tb_status [2N] int8), else None), numpy on the host."""
         opts = self.opts
         n, lr = read_bases.shape
         if lr > opts.max_read_length:
             raise ValueError(f"reads longer than max_read_length "
                              f"({lr} > {opts.max_read_length})")
-        # parity mode: the read-side key drops of this read set, unless a
-        # chunked caller has set them from the whole set already
-        self.ensure_read_drops(read_bases, read_lengths)
         bsz = opts.batchsize
         packed_parts, overflow = [], torch.zeros(5, dtype=torch.int64,
                                                  device=self.device)
@@ -592,6 +668,31 @@ class CoarseMapper:
                     torch.cat([x[2] for x in pool_step2])[:k]))
         packed = (torch.cat(packed_parts).cpu().numpy() if packed_parts
                   else np.zeros((0, 7), np.int32))
+        bundle = None
+        if with_scores:
+            if step2_parts:
+                bundle = tuple(
+                    torch.cat([x[i] for x in step2_parts],
+                              dim=1 if i == 0 else 0).cpu().numpy()
+                    for i in range(3))
+            else:
+                bundle = (np.zeros((10, 0), np.int16),
+                          np.zeros((0, 1), np.uint8), np.zeros(0, np.int8))
+        return packed, overflow.cpu().numpy(), bundle
+
+    def map_reads(self, read_bases: np.ndarray, read_lengths: np.ndarray,
+                  with_scores: bool = False):
+        """Map all reads: [N, L] int8 padded bases, [N] lengths.
+
+        with_scores: also run the fused STEP 2 per batch and return
+        (results, (scores [10, 2N] int16, tb_ops [2N, 48] uint8,
+        tb_status [2N] int8)), or (results, scores) when
+        opts.step2_device_traceback is False."""
+        # parity mode: the read-side key drops of this read set, unless a
+        # chunked caller has set them from the whole set already
+        self.ensure_read_drops(read_bases, read_lengths)
+        packed, overflow, bundle = self.map_reads_packed(
+            read_bases, read_lengths, with_scores)
         results = CoarseResults(
             orientation=packed[:, 0].astype(np.int8),
             hamming=packed[:, 1].astype(np.int32),
@@ -599,16 +700,9 @@ class CoarseMapper:
             chromosome_id=packed[:, 3].astype(np.int32),
             position=packed[:, 4].astype(np.int32),
             global_window_id=packed[:, 5].astype(np.uint32),
-            stats=self.stats(overflow.cpu().numpy()),
+            stats=self.stats(overflow),
             bs_strand=packed[:, 6].astype(np.int8))
         if not with_scores:
             return results
-        if step2_parts:
-            bundle = tuple(torch.cat([x[i] for x in step2_parts],
-                                     dim=1 if i == 0 else 0).cpu().numpy()
-                           for i in range(3))
-        else:
-            bundle = (np.zeros((10, 0), np.int16), np.zeros((0, 1), np.uint8),
-                      np.zeros(0, np.int8))
-        return results, (bundle if opts.step2_device_traceback
+        return results, (bundle if self.opts.step2_device_traceback
                          else bundle[0])

@@ -419,6 +419,70 @@ def test_coarse_and_fused_step2_card_equals_cpu_in_the_new_modes(dev, mode):
         assert (rh.bs_strand[kind >= 2] == 1).mean() > 0.5
 
 
+def _small_case_opts(mode, **kw):
+    from hashreadmapper_tpu_torch.config import ProgramOptions
+    return ProgramOptions(**dict(dict(
+        kmer_length=16, num_hash_functions=8, window_size=128,
+        min_table_hits=2, batchsize=128, max_hamming_percent=0.6,
+        probe_cap=16, candidates_per_read_cap=16, max_read_length=96,
+        three_n_seeding=mode != "parity",
+        undirectional=mode == "undirectional",
+        shd_pairs_per_read_budget=4, probe_tail_budget_per_read=4), **kw))
+
+
+RESULT_FIELDS = ("orientation", "hamming", "shift", "chromosome_id",
+                 "position", "global_window_id", "bs_strand")
+
+
+@pytest.mark.parametrize("mode", ["parity", "threeN", "undirectional"])
+def test_window_stream_card_equals_cpu(dev, mode):
+    """The window stream (read index, window signatures, the probe over
+    2F or 4F read tables, the vote, the fused SHD stage with read ids
+    into the whole read set, the host merge): every field and stat, card
+    == CPU."""
+    from hashreadmapper_tpu_torch.pipeline.window_stream import \
+        WindowStreamMapper
+    genome, reads, lengths, kind = _four_strand_case(
+        conv=0.0 if mode == "parity" else 0.9)
+    outs = [WindowStreamMapper(reads, lengths, _small_case_opts(
+        mode, batchsize=64, probe_head_budget_per_read=8,
+        max_results_per_map=40), d).map_genome(genome)
+        for d in (dev, "cpu")]
+    for f in RESULT_FIELDS:
+        np.testing.assert_array_equal(getattr(outs[0], f),
+                                      getattr(outs[1], f), f)
+    assert outs[0].stats == outs[1].stats
+    mapped = outs[1].orientation != 3
+    assert mapped[kind < 2].mean() > 0.8
+    if mode == "undirectional":
+        assert (outs[1].bs_strand[kind >= 2] == 1).mean() > 0.5
+
+
+def test_regions_with_scores_card_equals_cpu(dev):
+    """Three window regions of one chromosome (segments with virtual
+    offsets, no cuckoo table), with the fused STEP 2 in each: the merged
+    rows and the bundle, card == CPU, and the rows equal the single
+    mapper's on the card."""
+    from hashreadmapper_tpu_torch.parallel.region_sharded import \
+        RegionShardedMapper
+    from hashreadmapper_tpu_torch.pipeline.engine import CoarseMapper
+    genome, reads, lengths, _ = _four_strand_case()
+    opts = _small_case_opts("threeN")
+    outs = [RegionShardedMapper(genome, opts, 3, devices=[d],
+                                partition="window").map_reads(
+        reads, lengths, with_scores=True) for d in (dev, "cpu")]
+    (rc_, bc), (rh, bh) = outs
+    for f in RESULT_FIELDS + ("global_window_id64",):
+        np.testing.assert_array_equal(getattr(rc_, f), getattr(rh, f), f)
+    assert rc_.stats == rh.stats and rc_.stats["cuckoo_direct_probe"] == 0
+    for c, h in zip(bc, bh):
+        np.testing.assert_array_equal(c, h)
+    single = CoarseMapper(genome, opts, dev).map_reads(reads, lengths)
+    for f in RESULT_FIELDS:
+        np.testing.assert_array_equal(getattr(rc_, f), getattr(single, f), f)
+    assert (rh.orientation != 3).mean() > 0.4
+
+
 def _pairs(rng, p, lq, lr):
     """Reads cut from their ref with substitutions and a 0-3 base indel,
     every third pair random; every seventh a full-length exact copy, which

@@ -260,22 +260,41 @@ def test_index_saved_by_the_cli_loads_back(dataset, tmp_path):
 
 
 def test_genome_of_2_31_bases_raises():
+    """A single mapper stages fewer than 2**31 bases; the error points to
+    the regions."""
     class HugeGenome(Genome):
         def chromosome_length(self, chrom_id):
             return 2**31
 
     genome = HugeGenome(["chrHuge"], ["ACGT" * 64])
     opts, _ = cli.options_from_args(["--threeN", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="RegionShardedMapper.*--regions"):
         CoarseMapper(genome, opts, "cpu")
 
 
 @pytest.mark.parametrize("extra,item", [
     (["--threeN", "--mesh", "1", "2"], "item 15"),
-    (["--threeN", "--regions", "2"], "item 14")])
+    (["--threeN", "--regions", "2", "--mesh", "1", "2"], "item 15")])
 def test_options_outside_the_slice_raise(extra, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.options_from_args(["--device", "cpu"] + extra)
+
+
+def test_regions_reach_the_region_sharded_mapper(dataset, tmp_path):
+    """--regions 2 is no longer refused: the driver builds a
+    RegionShardedMapper of two regions, one a chromosome, on the device
+    asked for, and writes a SAM with mapped rows."""
+    from hashreadmapper_tpu_torch.parallel.region_sharded import \
+        RegionShardedMapper
+    out = str(tmp_path / "regions")
+    res = cli.run(_argv(dataset, out, 0) + ["--device", "cpu",
+                                            "--regions", "2"])
+    mapper = res["mapper"]
+    assert isinstance(mapper, RegionShardedMapper)
+    assert mapper.n_regions == 2 and mapper.device == torch.device("cpu")
+    assert [[s.chrom_id for s in r] for r in mapper.regions] == [[0], [1]]
+    sam, _ = _outputs(out)
+    assert b"Yf:i:" in sam
 
 
 def test_cuda_device_without_a_card_raises():

@@ -36,6 +36,9 @@ bad = sorted(m for m in sys.modules
              or m == "hashreadmapper_tpu" or m.startswith("hashreadmapper_tpu."))
 assert not bad, bad
 assert len(names) >= 30, names
+for mod in ("parallel.segments", "parallel.region_sharded",
+            "pipeline.window_stream"):
+    assert pkg.__name__ + "." + mod in names, mod
 print("IMPORTED", len(names))
 """
     proc = _run(code)
