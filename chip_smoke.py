@@ -55,6 +55,19 @@ Phase 7  the window stream (the read index resident, the genome's windows
 Phase 8  --regions 4 through the flagship CLI (a window partition of the
          chromosome, four mappers without cuckoo tables): SAM and VCF byte
          for byte phase 2's.
+Phase 9  the data x table mesh at the flagship width, a logical 2 x 4
+         mesh with every position cuda:0 (its numbers are a mesh's
+         launches and copies on one card, not a scaling figure): build
+         seconds, index bytes per position and per device, coarse and
+         coarse + STEP 2 reads/s, hand-written launches per mesh batch and
+         every device launch under torch.profiler, planted mapping and
+         concordance; the single mapper's rows at --probeCap 256 without
+         budgets; card == CPU on a 1 Mbp prefix (8,192 reads, 3N and
+         --undirectional, the fused STEP-2 bundle too; 4 regions over a
+         1 x 2 mesh); the CLI with --mesh 1 1 == the single run, byte for
+         byte; two processes of 2 regions each, merged over gloo (the
+         script runs itself with --region-worker), == the single-process
+         4-region mapper; a 1 x 2 mesh over two cards where there are two.
 Phase 4  a chr1-sized (248,956,422 bp) window index resident on the card,
          coarse-mapping 49,152 planted reads; then the same genome in two
          window regions (per-read results equal the single mapper's), and
@@ -103,6 +116,7 @@ N_PARITY = 16_384
 OVERFLOW_KEYS = ("probe_overflow", "vote_overflow", "pair_budget_overflow",
                  "probe_tail_overflow", "probe_head_overflow")
 CHR1_LEN = 248_956_422          # GRCh38 chr1
+MESH = (2, 4)                   # phase 9's logical data x table mesh
 # The card's peaks, for bound_ms: device memory 3.35 TB/s (H100 SXM data
 # sheet); instructions by the pipe they issue on, in lanes a clock a
 # multiprocessor, over the data sheet's clock (its 67 TFLOP/s of float32
@@ -1941,6 +1955,276 @@ def phase8_chr1(chr1):
     return launches
 
 
+def mesh_card_equals_cpu(label, genome, flags, reads, mesh_shape, regions=0,
+                         with_scores=True):
+    """The same reads through a logical mesh on the card and on the CPU
+    (every position that device): every field and stat, and with_scores
+    the fused STEP-2 bundle, identical.  regions > 0: a
+    RegionShardedMapper of that many regions over the mesh."""
+    from hashreadmapper_tpu_torch import cli
+    from hashreadmapper_tpu_torch.parallel.region_sharded import \
+        RegionShardedMapper
+    from hashreadmapper_tpu_torch.parallel.sharded import (
+        ShardedCoarseMapper, make_mesh)
+    n = len(reads)
+    padded = np.zeros((n, 128), np.int8)
+    padded[:, :READ_LEN] = reads
+    lens = np.full(n, READ_LEN, np.int32)
+    outs = {}
+    for dev in ("cuda:0", "cpu"):
+        opts, _ = cli.options_from_args(flags + ["--device",
+                                                 dev.split(":")[0]])
+        mesh = make_mesh(*mesh_shape, [dev] * (mesh_shape[0] * mesh_shape[1]))
+        t0 = time.perf_counter()
+        mapper = (RegionShardedMapper(genome, opts, regions, mesh=mesh)
+                  if regions else ShardedCoarseMapper(genome, opts, mesh))
+        t1 = time.perf_counter()
+        outs[dev] = mapper.map_reads(padded, lens, with_scores=with_scores)
+        log(f"{label} {dev}: built in {t1 - t0:.3f} s, {n} reads mapped in "
+            f"{time.perf_counter() - t1:.3f} s")
+    card, host = outs["cuda:0"], outs["cpu"]
+    if with_scores:
+        (card, c_bundle), (host, h_bundle) = card, host
+        for name, c, h in zip(("scores", "tb_ops", "tb_status"), c_bundle,
+                              h_bundle):
+            if c.dtype != h.dtype or not np.array_equal(c, h):
+                raise AssertionError(f"{label}: fused STEP 2 {name}: card "
+                                     "!= CPU")
+    same_results(f"{label} card == CPU", card, host)
+    log(f"{label} card == CPU: every field and stat identical"
+        f"{', and the fused STEP-2 bundle' if with_scores else ''}; mapped "
+        f"{int((card.orientation != 3).sum())} of {n}, strand column set in "
+        f"{int((card.bs_strand != 0).sum())}, overflow {card.stats}")
+
+
+def region_worker(rank, world, coord, tmp):
+    """One rank of phase 9's two-process region merge: its 2 of the
+    flagship's 4 window regions on the card, the merge over gloo with the
+    other rank; rank 0 writes the merged key and payload to tmp."""
+    from hashreadmapper_tpu_torch import cli
+    from hashreadmapper_tpu_torch.io.genome import Genome
+    from hashreadmapper_tpu_torch.parallel import multihost
+    from hashreadmapper_tpu_torch.parallel.region_sharded import (
+        chrom_gwin_base, region_key_payload)
+    from hashreadmapper_tpu_torch.parallel.segments import partition_windows
+    from hashreadmapper_tpu_torch.pipeline.engine import CoarseMapper
+    rank, world = int(rank), int(world)
+    multihost.initialize(coord, world, rank, backend="gloo")
+    genome = Genome.from_fasta(os.path.join(tmp, "g.fa"))
+    padded = np.load(os.path.join(tmp, "padded.npy"))
+    lens = np.full(len(padded), READ_LEN, np.int32)
+    opts, _ = cli.options_from_args(FLAGSHIP)
+    mesh = multihost.region_mesh(["cuda:0", "cuda:0"])
+    regions = partition_windows(genome, opts, mesh.num_regions)
+    gwin_base = chrom_gwin_base(genome, opts)
+    keys, payloads = [], []
+    t0 = time.perf_counter()
+    for r, dev in enumerate(mesh.local_devices):
+        mapper = CoarseMapper(genome, opts, dev,
+                              segments=regions[mesh.region_offset + r],
+                              build_direct_probe=False)
+        mapper.ensure_empty_drops()
+        packed, _, _ = mapper.map_reads_packed(padded, lens)
+        key, payload, _ = region_key_payload(mapper, packed, gwin_base)
+        keys.append(key)
+        payloads.append(payload)
+    t1 = time.perf_counter()
+    key, payload = multihost.merge_region_results(mesh, keys, payloads)
+    t2 = time.perf_counter()
+    if rank == 0:
+        np.savez(os.path.join(tmp, "merged.npz"), key=key, payload=payload)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    print(f"REGION_WORKER {rank}: regions {mesh.region_offset}.."
+          f"{mesh.region_offset + len(keys) - 1} of {mesh.num_regions}, "
+          f"mapped in {t1 - t0:.3f} s, merged over gloo in {t2 - t1:.3f} s",
+          flush=True)
+    return 0
+
+
+def two_process_merge(tmp, genome, padded, lens):
+    """Phase 9 (e): 2 processes, each with 2 of the flagship's 4 window
+    regions on the card, merged over gloo (host tensors: NCCL refuses two
+    ranks on one card) == the single-process 4-region
+    RegionShardedMapper."""
+    import socket
+    from hashreadmapper_tpu_torch import cli
+    from hashreadmapper_tpu_torch.parallel.region_sharded import \
+        RegionShardedMapper
+    opts, _ = cli.options_from_args(FLAGSHIP)
+    np.save(os.path.join(tmp, "padded.npy"), padded)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+         "--region-worker", str(rank), "2", coord, tmp],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"phase9 region worker {rank} failed:\n"
+                                 f"{out[-4000:]}")
+        log(out.strip().splitlines()[-1])
+    merged = np.load(os.path.join(tmp, "merged.npz"))
+    ref = RegionShardedMapper(genome, opts, 4, devices=["cuda:0"],
+                              partition="window").map_reads(padded, lens)
+    want_key = np.where(ref.orientation != 3,
+                        (ref.hamming.astype(np.int64) << 40)
+                        + ref.global_window_id64, np.int64(2**62))
+    if not np.array_equal(merged["key"], want_key):
+        raise AssertionError("phase9: the two-process merge's keys differ "
+                             "from the single-process regions'")
+    for col, f in enumerate(("orientation", "hamming", "shift",
+                             "chromosome_id", "position", "bs_strand")):
+        if not np.array_equal(merged["payload"][:, col], getattr(ref, f)):
+            raise AssertionError(f"phase9: the two-process merge's {f} "
+                                 "differs from the single-process regions'")
+    log(f"phase9 two processes x 2 regions on the card, merged over gloo on "
+        f"host tensors (NCCL takes one rank a card): {wall:.3f} s with both "
+        f"processes' start; keys and the 6 payload fields of all {len(lens)} "
+        f"reads equal the single-process 4-region RegionShardedMapper's "
+        f"(mapped {int((ref.orientation != 3).sum())})")
+
+
+def phase9(tmp, res, reads, starts, junk):
+    """The data x table mesh at the flagship width (a logical 2 x 4 mesh on
+    the one card: every position cuda:0, so its numbers are a mesh's
+    launches and copies, not a scaling figure), the regions over a mesh,
+    and the two-process region merge."""
+    from hashreadmapper_tpu_torch import cli
+    from hashreadmapper_tpu_torch.io.genome import Genome
+    from hashreadmapper_tpu_torch.parallel.sharded import (
+        ShardedCoarseMapper, make_mesh)
+    from hashreadmapper_tpu_torch.pipeline.engine import CoarseMapper
+    genome, single = res["genome"], res["mapper"]
+    opts, _ = cli.options_from_args(FLAGSHIP)
+    lens = np.full(N_READS, READ_LEN, np.int32)
+    padded = np.zeros((N_READS, 128), np.int8)
+    padded[:, :READ_LEN] = reads
+    d_n, t_n = MESH
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mapper = ShardedCoarseMapper(genome, opts,
+                                 make_mesh(d_n, t_n, ["cuda:0"] * d_n * t_n))
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    (r, _), wall, launches = counted(
+        f"phase9 {d_n}x{t_n} mesh map_reads(with_scores=True)",
+        lambda: mapper.map_reads(padded, lens, with_scores=True))
+    n_batches = -(-N_READS // (opts.batchsize * d_n))
+    per_batch = {k: v / n_batches for k, v in launches.items()
+                 if k in kernel_wrappers()}
+    coarse_s, step2_s = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        mapper.map_reads(padded, lens)
+        coarse_s.append(time.perf_counter() - t)
+    for _ in range(3):
+        t = time.perf_counter()
+        mapper.map_reads(padded, lens, with_scores=True)
+        step2_s.append(time.perf_counter() - t)
+    t_coarse, t_step2 = (statistics.median(x) for x in (coarse_s, step2_s))
+    ref = single.map_reads(padded, lens)
+    log(f"phase9 {d_n}x{t_n} logical mesh on one card, flagship: built in "
+        f"{t_build:.3f} s; index bytes per position "
+        f"{mapper.index_memory_per_position()}, per device "
+        f"{mapper.index_memory_per_device()}; coarse "
+        f"{N_READS / t_coarse:.1f} reads/s (median of 3: "
+        f"{[round(s, 6) for s in coarse_s]} s), coarse + device STEP 2 "
+        f"{N_READS / t_step2:.1f} reads/s (median of 3: "
+        f"{[round(s, 6) for s in step2_s]} s); hand-written launches per "
+        f"mesh batch of {opts.batchsize * d_n} reads ({n_batches} batches) "
+        f"{per_batch}; overflow {r.stats} against the single mapper's "
+        f"{ref.stats} (the tail budget counts per table shard, no head "
+        f"budget on the mesh)")
+    per_batch["every device launch"] = profiled(
+        "phase9", lambda: mapper.map_reads(padded, lens, with_scores=True),
+        f"{d_n}x{t_n} mesh map_reads(with_scores=True) of {N_READS} reads",
+        n_batches, f"{opts.batchsize * d_n}-read mesh batch")
+    frac = check_fractions("phase9 flagship mesh",
+                           *window_fractions(r, starts), junk)
+    del mapper
+
+    # (b) where no cap or budget is over, the single mapper's rows
+    exact = FLAGSHIP + ["--probeCap", "256", "--shdPairBudget", "0",
+                        "--probeTailBudget", "0", "--probeHeadBudget", "0"]
+    opts_x, _ = cli.options_from_args(exact)
+    a = CoarseMapper(genome, opts_x, "cuda").map_reads(padded, lens)
+    b = ShardedCoarseMapper(genome, opts_x, make_mesh(
+        d_n, t_n, ["cuda:0"] * d_n * t_n)).map_reads(padded, lens)
+    if any(a.stats[k] for k in OVERFLOW_KEYS):
+        raise AssertionError(f"phase9: counters over at {exact[-8:]}: "
+                             f"{a.stats}")
+    same_results("phase9 mesh == single at probe cap 256, no budgets", b, a)
+    log(f"phase9 {d_n}x{t_n} mesh == single mapper at {exact[-8:]}: every "
+        f"field of {N_READS} reads and every counter (all 0) identical")
+
+    # (a) card == CPU on a 1 Mbp prefix, 8,192 reads, 3N and undirectional
+    rng = np.random.default_rng(91)
+    chrom = np.asarray(genome.bases[0][:1_000_000], np.int8)
+    small = Genome(["chrB"], [ACGT[chrom].tobytes().decode()])
+    mesh_card_equals_cpu("phase9 3N 2x4 mesh", small, FLAGSHIP,
+                         planted_reads(rng, chrom, 8192, READ_LEN)[0], MESH)
+    mesh_card_equals_cpu("phase9 --undirectional 2x4 mesh", small,
+                         FLAGSHIP + ["--undirectional"],
+                         four_strand_reads(rng, chrom, 8192, READ_LEN)[0],
+                         MESH)
+    # (d) 4 regions over a logical 1 x 2 mesh, card == CPU
+    mesh_card_equals_cpu("phase9 4 regions over a 1x2 mesh", small, FLAGSHIP,
+                         planted_reads(rng, chrom, 4096, READ_LEN)[0], (1, 2),
+                         regions=4, with_scores=False)
+
+    # (c) the CLI: --mesh 1 1 without the head budget == the single run
+    argv = FLAGSHIP + ["--probeHeadBudget", "0", "--genomefile",
+                       os.path.join(tmp, "g.fa"), "-i",
+                       os.path.join(tmp, "reads.fq.gz")]
+    outs = {}
+    for label, extra in (("single", []), ("--mesh 1 1", ["--mesh", "1", "1"])):
+        outs[label] = os.path.join(tmp, f"out_mesh_{len(extra)}")
+        t0 = time.perf_counter()
+        rc = cli.run(argv + extra + ["-o", outs[label]])
+        log(f"phase9 CLI {label} --probeHeadBudget 0: "
+            f"{time.perf_counter() - t0:.3f} s, mapper "
+            f"{type(rc['mapper']).__name__}, stats {rc['results'].stats}")
+    for ext in (".SAM", ".VCF"):
+        with open(outs["single"] + ext, "rb") as x, \
+                open(outs["--mesh 1 1"] + ext, "rb") as y:
+            if x.read() != y.read():
+                raise AssertionError(f"phase9: --mesh 1 1 {ext} differs from "
+                                     "the single CLI run's")
+    log("phase9 SAM and VCF: --mesh 1 1 == single, byte for byte")
+
+    # (e) two processes, two regions each, merged over gloo
+    two_process_merge(tmp, genome, padded, lens)
+
+    # distinct cards, where the machine has them
+    if torch.cuda.device_count() >= 2:
+        mesh2 = make_mesh(1, 2)
+        r2 = ShardedCoarseMapper(genome, opts, mesh2).map_reads(padded, lens)
+        same_results("phase9 1x2 mesh over two cards == the logical mesh",
+                     r2, ShardedCoarseMapper(genome, opts, make_mesh(
+                         1, 2, ["cuda:0"] * 2)).map_reads(padded, lens))
+        log(f"phase9 1x2 mesh over {mesh2.devices[0]}: identical to the "
+            f"logical 1x2 mesh on cuda:0")
+    else:
+        log(f"phase9 1x2 mesh over distinct cards: skipped, "
+            f"{torch.cuda.device_count()} card on this machine")
+    return launches, per_batch, frac
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1948,6 +2232,8 @@ def main():
         return 1
     sys.path.insert(0, REPO)
     import hashreadmapper_tpu_torch  # noqa: F401  (fails outside the repo)
+    if sys.argv[1:2] == ["--region-worker"]:
+        return region_worker(*sys.argv[2:])
     smi = phase0()
     records = phase1()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1958,6 +2244,8 @@ def main():
         launches_par, _ = phase6(tmp, res, chrom)
         launches_ws, per_batch_ws, _ = phase7(res, reads, starts, junk)
         launches_reg, per_batch_reg = phase8(tmp, res, reads)
+        launches_mesh, per_batch_mesh, _ = phase9(tmp, res, reads, starts,
+                                                  junk)
     del res
     chr1 = phase4()
     phase8_chr1(chr1)
@@ -2033,7 +2321,9 @@ def main():
                 launches_per_window_batch=sum(per_batch_ws.get(n, 0)
                                               for n in names),
                 launches_regions=total(launches_reg),
-                launches_per_region_batch=total(per_batch_reg))
+                launches_per_region_batch=total(per_batch_reg),
+                launches_mesh=total(launches_mesh),
+                launches_per_mesh_batch=total(per_batch_mesh))
         else:
             # no caller on the main path: counted over phase 1's
             # cross-checks against the kernels that superseded it
@@ -2069,7 +2359,9 @@ def main():
         "device_launches_per_batch_undirectional":
             per_batch_und["every device launch"],
         "device_launches_per_window_batch":
-            per_batch_ws["every device launch"]}))
+            per_batch_ws["every device launch"],
+        "device_launches_per_mesh_batch":
+            per_batch_mesh["every device launch"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

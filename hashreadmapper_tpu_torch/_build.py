@@ -18,8 +18,9 @@ native.py binds it.
 
 Every entry point takes device pointers and the CUDA stream as c_void_p,
 sizes as c_int (a float32 parameter as c_float), launches on that stream
-without synchronising, and returns cudaGetLastError(); launch() raises
-when that is not cudaSuccess.
+without synchronising, and returns cudaGetLastError(); launch() runs it
+on the card of the tensors it is given and raises when that is not
+cudaSuccess.
 """
 
 from __future__ import annotations
@@ -236,10 +237,22 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, *args) -> None:
-    """Call one C entry point; raise on a non-zero cudaError_t."""
+def launch(name: str, on: torch.Tensor, *args) -> None:
+    """Call one C entry point on the card that holds `on`, with that card's
+    current stream appended as the last argument; raise on a non-zero
+    cudaError_t.  The entry points launch on the CUDA runtime's current
+    device (and set their kernels' shared-memory attributes there), so a
+    tensor on another card makes its card the current one for the call;
+    where it already is, the switch is skipped (it costs the host a
+    device query a launch)."""
     lib = load()
-    rc = getattr(lib, name)(*args)
+    fn = getattr(lib, name)
+    idx = on.device.index
+    if idx == torch.cuda.current_device():
+        rc = fn(*args, stream(on))
+    else:
+        with torch.cuda.device(idx):
+            rc = fn(*args, stream(on))
     if rc != 0:
         msg = lib.hrm_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")

@@ -6,8 +6,9 @@ parser, copied) plus --device.
 
 --device cuda (the default) runs the hand-written CUDA kernels and raises
 when no CUDA device is available; --device cpu runs their plain PyTorch
-versions.  Options outside the port's slice raise NotImplementedError
-naming the ROADMAP item that ports them.
+versions.  --mesh D T runs the coarse stage over D x T distinct cards
+with --device cuda (raising when there are fewer), over D x T positions
+that are all the CPU with --device cpu.
 """
 
 from __future__ import annotations
@@ -19,7 +20,6 @@ import torch
 
 from .config import MapperType, ProgramOptions, SequencePairType, \
     parse_memory_string
-from .pipeline.engine import check_supported
 
 
 def resolve_device(name: str) -> torch.device:
@@ -173,7 +173,6 @@ def options_from_args(argv: Optional[List[str]] = None
         mesh_data=args.mesh[0] if args.mesh else None,
         mesh_table=args.mesh[1] if args.mesh else None,
     )
-    check_supported(opts)
     return opts, resolve_device(args.device)
 
 

@@ -91,9 +91,9 @@ def shift_sub(codes_t: torch.Tensor, begin: torch.Tensor, size: int,
            if pair_major else
            torch.empty((size, P), dtype=torch.int32, device=x.device))
     _build.check_cuda("shift_sub", x, sh, out)
-    _build.launch("hrm_shift_sub", x.data_ptr(), sh.data_ptr(),
+    _build.launch("hrm_shift_sub", out, x.data_ptr(), sh.data_ptr(),
                   out.data_ptr(), L, P, size, shift_bits_mask(L + size),
-                  x.element_size(), int(pair_major), _build.stream(out))
+                  x.element_size(), int(pair_major))
     shift_sub.launches += 1
     return out
 
@@ -244,11 +244,10 @@ def fill_pass(read_t, ref_t, m, r, bw, done, m_max: int, emit_dirs: bool
     _build.check_cuda("fill_pass", *args, best, dirs)
     if read_c.device != dev:
         raise ValueError("fill_pass: all inputs must be on one CUDA device")
-    _build.launch("hrm_fill_pass", read_c.data_ptr(), read_c.stride(0),
+    _build.launch("hrm_fill_pass", best, read_c.data_ptr(), read_c.stride(0),
                   ref_c.data_ptr(), ref_c.stride(0), read_c.element_size(),
                   *[t.data_ptr() for t in args], best.data_ptr(),
-                  dirs.data_ptr(), P, m_max, NL, int(emit_dirs),
-                  _build.stream(best))
+                  dirs.data_ptr(), P, m_max, NL, int(emit_dirs))
     fill_pass.launches += 1
     return best, (dirs if emit_dirs else None)
 
@@ -402,11 +401,11 @@ def traceback(read_s, ref_s, m, r, score1, n_entries: int,
     outs = [entries, status, bw, scratch, counters]
     _build.check_cuda("traceback", *args, *outs,
                       *([] if need_c is None else [need_c]))
-    _build.launch("hrm_traceback", *[t.data_ptr() for t in args],
+    _build.launch("hrm_traceback", entries, *[t.data_ptr() for t in args],
                   None if need_c is None else need_c.data_ptr(),
                   *[t.data_ptr() for t in outs], P, m_max, NL, n_entries,
                   run_cap, entries.element_size(), n_band_passes(m_max, NL),
-                  TB_SMEM_CELLS, blocks, _build.stream(entries))
+                  TB_SMEM_CELLS, blocks)
     traceback.launches += 1
     out = (entries, status, bw)
     return (*out, counters[1]) if return_spilled else out

@@ -110,11 +110,11 @@ def _launch_stage(name, bases, lengths, hash_ids, out, valid, k, mode,
     hash_ids = hash_ids.to(device=bases.device, dtype=torch.int64).contiguous()
     _build.check_cuda(name, bases, lengths, hash_ids, out,
                       *(() if valid is None else (valid,)))
-    _build.launch("hrm_minhash_stage", bases.data_ptr(), lengths.data_ptr(),
-                  hash_ids.data_ptr(), out.data_ptr(),
+    _build.launch("hrm_minhash_stage", bases, bases.data_ptr(),
+                  lengths.data_ptr(), hash_ids.data_ptr(), out.data_ptr(),
                   None if valid is None else valid.data_ptr(), n, maxlen, k,
                   f, STAGE_MODES[mode], COLLAPSES[collapse], int(finish),
-                  int(mirror), _build.stream(bases))
+                  int(mirror))
 
 
 def sigs_from_bases(bases: torch.Tensor, lengths: torch.Tensor, k: int,
@@ -272,9 +272,10 @@ def sig_min_murmur(kmer_lo: torch.Tensor, lengths: torch.Tensor, k: int,
     hash_ids = hash_ids.to(device=kmers.device, dtype=torch.int64).contiguous()
     out = torch.empty((n, f), dtype=torch.int64, device=kmers.device)
     _build.check_cuda("sig_min_murmur", kmers, lengths, hash_ids, out)
-    _build.launch("hrm_sig_min_murmur", kmers.data_ptr(), kmers.element_size(),
+    _build.launch("hrm_sig_min_murmur", kmers,
+                  kmers.data_ptr(), kmers.element_size(),
                   lengths.data_ptr(), hash_ids.data_ptr(), out.data_ptr(), n,
-                  npos, k, f, _build.stream(kmers))
+                  npos, k, f)
     sig_min_murmur.launches += 1
     return out
 

@@ -176,8 +176,8 @@ def shd_best(anchor_hi, anchor_lo, read_hi_both, read_lo_both, read_mask,
     p = args[0].shape[0]
     out = torch.empty((p, 4), dtype=torch.int32, device=args[0].device)
     _build.check_cuda("shd_best", *args, out)
-    _build.launch("hrm_shd_best", *[t.data_ptr() for t in args],
-                  out.data_ptr(), p, wa, wr, n_shifts, _build.stream(out))
+    _build.launch("hrm_shd_best", out, *[t.data_ptr() for t in args],
+                  out.data_ptr(), p, wa, wr, n_shifts)
     shd_best.launches += 1
     return out
 
@@ -222,8 +222,8 @@ def shd_hamming_matrix(anchor_hi, anchor_lo, read_hi_both, read_lo_both,
     out = torch.empty((p, 2, n_shifts), dtype=torch.int32,
                       device=args[0].device)
     _build.check_cuda("shd_hamming_matrix", *args, out)
-    _build.launch("hrm_shd_hamming_matrix", *[t.data_ptr() for t in args],
-                  out.data_ptr(), p, wa, wr, n_shifts, _build.stream(out))
+    _build.launch("hrm_shd_hamming_matrix", out, *[t.data_ptr() for t in args],
+                  out.data_ptr(), p, wa, wr, n_shifts)
     shd_hamming_matrix.launches += 1
     return out
 
@@ -269,9 +269,10 @@ def shd_pairs_best(read_bases, read_len, ridx, genome_hi, genome_lo,
             torch.empty(p, dtype=torch.int32, device=dev),
             torch.empty(p, dtype=torch.int8, device=dev)]
     _build.check_cuda("shd_pairs_best", *ins, *outs)
-    _build.launch("hrm_shd_pairs_best", *[t.data_ptr() for t in ins + outs],
+    _build.launch("hrm_shd_pairs_best", outs[0],
+                  *[t.data_ptr() for t in ins + outs],
                   p, l, genome_hi.shape[0], n_shifts,
-                  float(max_hamming_percent), mode, _build.stream(outs[0]))
+                  float(max_hamming_percent), mode)
     shd_pairs_best.launches += 1
     return tuple(outs)
 

@@ -185,11 +185,12 @@ def pass_batched(read_at, eff_read_len, seg_len, ref_t, ref_len, terminate,
     mc = torch.empty((n_cols if want_max_column else 1, P),
                      dtype=torch.int32, device=dev)
     _build.check_cuda("pass_batched", read_at, ref_t, *vecs, out, mc)
-    _build.launch("hrm_sw_pass", read_at.data_ptr(), read_at.element_size(),
+    _build.launch("hrm_sw_pass", out,
+                  read_at.data_ptr(), read_at.element_size(),
                   vecs[0].data_ptr(), vecs[1].data_ptr(), ref_t.data_ptr(),
                   ref_t.element_size(), vecs[2].data_ptr(),
                   vecs[3].data_ptr(), out.data_ptr(), mc.data_ptr(), S, P,
-                  n_cols, ref_dir, int(want_max_column), _build.stream(out))
+                  n_cols, ref_dir, int(want_max_column))
     pass_batched.launches += 1
     return (out[0], out[1], out[2], mc if want_max_column else None,
             out[3].bool())
@@ -367,10 +368,11 @@ def sw_forward(read_t, read_len, ref_tt, ref_len, mask_len, n_cols: int,
     read_t, ref_t = _codes(read_t), _codes(ref_tt[:n_cols])
     vecs = [_i32(t) for t in (read_len, ref_len, mask_len)]
     _build.check_cuda("sw_forward", read_t, ref_t, *vecs, out)
-    _build.launch("hrm_sw_forward", read_t.data_ptr(), read_t.element_size(),
+    _build.launch("hrm_sw_forward", out,
+                  read_t.data_ptr(), read_t.element_size(),
                   vecs[0].data_ptr(), ref_t.data_ptr(), ref_t.element_size(),
                   vecs[1].data_ptr(), vecs[2].data_ptr(), out.data_ptr(), lq,
-                  P, n_cols, _build.stream(out))
+                  P, n_cols)
     sw_forward.launches += 1
     return out
 
@@ -409,11 +411,12 @@ def sw_reverse(read_t, ref_tt, score1, ref_end, query_end, n_cols: int,
     read_t, ref_t = _codes(read_t), _codes(ref_tt[:n_cols])
     vecs = [_i32(t) for t in (score1, ref_end, query_end)]
     _build.check_cuda("sw_reverse", read_t, ref_t, *vecs, out)
-    _build.launch("hrm_sw_reverse", read_t.data_ptr(), read_t.element_size(),
+    _build.launch("hrm_sw_reverse", out,
+                  read_t.data_ptr(), read_t.element_size(),
                   ref_t.data_ptr(), ref_t.element_size(), vecs[0].data_ptr(),
                   vecs[1].data_ptr(), vecs[2].data_ptr(), out.data_ptr(), lq,
                   P, n_cols, shift_bits_mask(lq), shift_bits_mask(n_cols),
-                  shift_bits_mask(n_cols + 2 * lq), _build.stream(out))
+                  shift_bits_mask(n_cols + 2 * lq))
     sw_reverse.launches += 1
     return out
 

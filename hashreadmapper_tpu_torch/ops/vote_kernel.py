@@ -83,9 +83,9 @@ def vote_candidates_fnc(cand_fnc: torch.Tensor, min_table_hits: int,
     cnt = torch.empty((n, out_cap), dtype=torch.int32, device=dev)
     num_kept = torch.empty((n,), dtype=torch.int32, device=dev)
     _build.check_cuda("vote_candidates_fnc", cand, ids, cnt, num_kept)
-    _build.launch("hrm_vote", cand.data_ptr(), ids.data_ptr(), cnt.data_ptr(),
-                  num_kept.data_ptr(), f, n, c, min_table_hits, out_cap,
-                  _build.stream(cand))
+    _build.launch("hrm_vote", cand,
+                  cand.data_ptr(), ids.data_ptr(), cnt.data_ptr(),
+                  num_kept.data_ptr(), f, n, c, min_table_hits, out_cap)
     vote_candidates_fnc.launches += 1
     return ids, cnt, num_kept
 

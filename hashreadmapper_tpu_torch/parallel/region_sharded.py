@@ -12,7 +12,9 @@ global window ordinal): an associative, deterministic merge, so the
 results do not depend on the region count and equal the single mapper's
 wherever no cap or budget drops candidates differently in a region than
 in the whole genome.  Regions are placed round robin over a list of torch
-devices (one card by default) and run one after another.
+devices (one card by default) and run one after another; or, given a
+mesh, every region's tables are sharded over the same data x table mesh
+(one ShardedCoarseMapper a region, parallel/sharded.py).
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from ..config import ProgramOptions
 from ..io.genome import Genome
 from ..ops import shd
 from ..pipeline.engine import (OVERFLOW_KEYS, SENTINEL, CoarseMapper,
-                               CoarseResults, unsupported)
+                               CoarseResults)
+from .sharded import ShardedCoarseMapper
 from .segments import (Segment, partition_windows, regions_for_base_cap,
                        staged_bases, whole_chromosome_segments)
 
@@ -89,6 +92,15 @@ def plan_regions(genome: Genome, opts: ProgramOptions, n_regions: int,
     return regions
 
 
+def chrom_gwin_base(genome: Genome, opts: ProgramOptions) -> np.ndarray:
+    """[C] int64: the global window ordinal of each chromosome's first
+    window."""
+    counts = [genome.num_windows_in_chromosome(c, opts.kmer_length,
+                                               opts.window_size)
+              for c in range(genome.num_chromosomes)]
+    return np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+
+
 def region_key_payload(mapper: CoarseMapper, packed: np.ndarray,
                        chrom_gwin_base: np.ndarray):
     """Merge key and payload of one region's packed per-read rows.
@@ -127,40 +139,41 @@ class RegionShardedMapper:
     per-read results on the host.
 
     devices: torch devices the regions are placed on, round robin (more
-    regions than devices share a device); one card by default.  With more
-    than two regions on a device the regions keep the binary-search probe:
-    a cuckoo table costs more device memory than its CSR index."""
+    regions than devices share a device); one card by default.  mesh (a
+    parallel/sharded.py Mesh, in place of devices): every region's tables
+    sharded over it.  With more than two regions on a device (or on a
+    table shard of the mesh) the regions keep the binary-search probe: a
+    cuckoo table costs more device memory than its CSR index."""
 
     supports_fused_scores = True
 
     def __init__(self, genome: Genome, opts: ProgramOptions, n_regions: int,
                  devices=None, partition: str = "auto", mesh=None):
-        if mesh is not None:
-            raise unsupported("--mesh", "Queue 1 item 15")
         self.opts = opts
         self.genome = genome
         self.regions = plan_regions(genome, opts, n_regions, partition)
         self.n_regions = len(self.regions)
         devs = ([torch.device("cuda")] if devices is None
                 else [torch.device(d) for d in devices])
-        self.device = devs[0]
+        self.device = devs[0] if mesh is None else mesh.first
 
-        # global window ordinal of each chromosome's first window
-        self.chrom_gwin_base = np.zeros(genome.num_chromosomes, dtype=np.int64)
-        t = 0
-        for c in range(genome.num_chromosomes):
-            self.chrom_gwin_base[c] = t
-            t += genome.num_windows_in_chromosome(
-                c, opts.kmer_length, opts.window_size)
+        self.chrom_gwin_base = chrom_gwin_base(genome, opts)
 
-        direct_probe = -(-self.n_regions // len(devs)) <= 2
+        per_device = len(devs) if mesh is None else mesh.shape["table"]
+        direct_probe = -(-self.n_regions // per_device) <= 2
         self.mappers: List[CoarseMapper] = []
         self.build_seconds: List[float] = []
         for r, segs in enumerate(self.regions):
             t0 = time.perf_counter()
-            self.mappers.append(CoarseMapper(
-                genome, opts, devs[r % len(devs)], segments=segs,
-                build_direct_probe=direct_probe))
+            if mesh is None:
+                mapper = CoarseMapper(genome, opts, devs[r % len(devs)],
+                                      segments=segs,
+                                      build_direct_probe=direct_probe)
+            else:
+                mapper = ShardedCoarseMapper(genome, opts, mesh,
+                                             segments=segs,
+                                             build_direct_probe=direct_probe)
+            self.mappers.append(mapper)
             self.build_seconds.append(time.perf_counter() - t0)
 
     def map_reads(self, read_bases: np.ndarray, read_lengths: np.ndarray,
@@ -186,13 +199,17 @@ class RegionShardedMapper:
         best_key = np.full(n, 2**62, dtype=np.int64)
         win_region = np.full(n, -1, dtype=np.int32)
         region_scores = []
+        # the direct probe counts only where every region has it
+        direct = 1
         for r_i, mapper in enumerate(self.mappers):
             mapper.ensure_empty_drops()
             packed, ovf, bundle = mapper.map_reads_packed(
                 read_bases, read_lengths, with_scores)
             region_scores.append(bundle)
-            for k, v in zip(OVERFLOW_KEYS, ovf):
-                out.stats[k] += int(v)
+            stats = mapper.stats(ovf)
+            for k in OVERFLOW_KEYS:
+                out.stats[k] += stats[k]
+            direct = min(direct, stats["cuckoo_direct_probe"])
             key, payload, gwin_global = region_key_payload(
                 mapper, packed, self.chrom_gwin_base)
             better = key < best_key
@@ -207,9 +224,7 @@ class RegionShardedMapper:
             out.global_window_id64[better] = gwin_global[better]
             out.global_window_id[better] = (
                 gwin_global[better] & 0xFFFFFFFF).astype(np.uint32)
-        # the direct probe counts only where every region has it
-        out.stats["cuckoo_direct_probe"] = min(
-            int(m.index.cuckoo_keys is not None) for m in self.mappers)
+        out.stats["cuckoo_direct_probe"] = direct
         if not with_scores:
             return out
         e = max(to.shape[1] for _, to, _ in region_scores)

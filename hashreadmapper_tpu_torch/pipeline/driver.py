@@ -2,9 +2,11 @@
 (counterpart of hashreadmapper_tpu/pipeline/driver.py).
 
 STEP 1 runs on the CoarseMapper on the given device, in parity mode
-(canonical k-mers), --threeN or --threeN --undirectional; with --regions N,
-or for a genome of SINGLE_MAPPER_BASE_CAP bases or more, on a
-RegionShardedMapper (one CoarseMapper a region, all on that device).
+(canonical k-mers), --threeN or --threeN --undirectional; with --mesh D T
+on a ShardedCoarseMapper over a D x T mesh (distinct cards for a CUDA
+device, every position the CPU for the CPU); with --regions N, or for a
+genome of SINGLE_MAPPER_BASE_CAP bases or more, on a RegionShardedMapper
+(one mapper a region, all on that device or all over the mesh).
 STEP 2 runs there too (mapping.run_cssw: score passes and banded traceback
 fused into the coarse step per chunk when the reads are pipelined, in
 staged chunks otherwise), with the native CIGAR finish, rescore and
@@ -19,6 +21,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from ..config import MapperType, ProgramOptions, SequencePairType
 from ..io.genome import Genome
@@ -26,6 +29,7 @@ from ..io.readstore import ReadStorage
 from ..utils.progress import ProgressReporter
 from ..parallel.region_sharded import (SINGLE_MAPPER_BASE_CAP,
                                        RegionShardedMapper)
+from ..parallel.sharded import ShardedCoarseMapper, make_mesh
 from ..utils.timers import PhaseTimers
 from . import mapping, mapping_edlib
 from .engine import CoarseMapper, CoarseResults
@@ -96,6 +100,22 @@ def _pipelined_sw(mapper, bases: np.ndarray,
     return results, mappingout
 
 
+def build_mesh(opts: ProgramOptions, device):
+    """The --mesh D T of opts, or None: the first D * T cards for a CUDA
+    device (raising when there are fewer; a mesh asked for on the card
+    never runs on the CPU), D * T positions of the device otherwise."""
+    if opts.mesh_data is None and opts.mesh_table is None:
+        return None
+    n_data, n_table = opts.mesh_data or 1, opts.mesh_table or 1
+    if opts.save_hashtables_to or opts.load_hashtables_from:
+        raise ValueError("mesh-sharded tables do not serialize (the "
+                         "reference's warpcore tables cannot either, "
+                         "singlegpuminhasher.cuh:1052-1053)")
+    if torch.device(device).type == "cuda":
+        return make_mesh(n_data, n_table)
+    return make_mesh(n_data, n_table, [device] * (n_data * n_table))
+
+
 def run_pipeline(opts: ProgramOptions, device,
                  reads: Optional[ReadStorage] = None,
                  genome: Optional[Genome] = None) -> Dict:
@@ -128,16 +148,22 @@ def run_pipeline(opts: ProgramOptions, device,
                 opts.max_read_length = reads.sequence_length_upper_bound()
             total_bases = sum(genome.chromosome_length(c)
                               for c in range(genome.num_chromosomes))
+            mesh = build_mesh(opts, device)
+            over = (f" over a {mesh.shape['data']}x{mesh.shape['table']} mesh"
+                    if mesh else "")
             if opts.num_regions > 1 or total_bases >= SINGLE_MAPPER_BASE_CAP:
                 n_regions = opts.num_regions or max(
                     1, -(-total_bases // SINGLE_MAPPER_BASE_CAP))
                 mapper = RegionShardedMapper(genome, opts, n_regions,
-                                             devices=[device])
-                idx_bytes = sum(m.index.memory_bytes()
-                                for m in mapper.mappers)
+                                             devices=[device], mesh=mesh)
+                idx_bytes = sum(m.memory_bytes() for m in mapper.mappers)
                 n_windows = sum(m.table.num_windows for m in mapper.mappers)
                 print(f"window index: {idx_bytes} bytes, {n_windows} windows "
-                      f"in {mapper.n_regions} regions")
+                      f"in {mapper.n_regions} regions{over}")
+            elif mesh is not None:
+                mapper = ShardedCoarseMapper(genome, opts, mesh)
+                print(f"window index: {mapper.memory_bytes()} bytes, "
+                      f"{mapper.table.num_windows} windows sharded{over}")
             else:
                 mapper = CoarseMapper(
                     genome, opts, device,

@@ -39,18 +39,6 @@ OVERFLOW_KEYS = ("probe_overflow", "vote_overflow", "pair_budget_overflow",
                  "probe_tail_overflow", "probe_head_overflow")
 
 
-def unsupported(what: str, item: str):
-    """The error for an option outside this port's slice."""
-    return NotImplementedError(
-        f"{what} is not ported to hashreadmapper_tpu_torch yet "
-        f"(ROADMAP.md, {item}); use hashreadmapper_tpu")
-
-
-def check_supported(opts: ProgramOptions) -> None:
-    if opts.mesh_data is not None or opts.mesh_table is not None:
-        raise unsupported("--mesh", "Queue 1 item 15")
-
-
 @dataclasses.dataclass
 class WindowTable:
     """Device-resident genome geometry + per-window metadata."""
@@ -217,8 +205,9 @@ def coarse_pairs_best(ids, read_bases, read_len, opts: ProgramOptions,
     collapse spaces, and the mirrored result wins only when it is not NONE
     and the directional one is NONE or has strictly larger Hamming.
     Returns (out_ori, out_ham, out_shift, out_chrom, out_pos, best_gwin,
-    has, out_strand, pair_drops); out_strand is 1 where the mirrored space
-    won.
+    has, ori, out_strand, pair_drops): ori [B, K] is every candidate's SHD
+    orientation (NONE where rejected or not evaluated), out_strand is 1
+    where the mirrored space won.
     """
     b, kcap = ids.shape
     dev = ids.device
@@ -285,7 +274,7 @@ def coarse_pairs_best(ids, read_bases, read_len, opts: ProgramOptions,
     out_chrom = torch.where(has, win_chrom[best_gwin], zero)
     out_pos = torch.where(has, win_pos[best_gwin], zero)
     return (out_ori, out_ham, out_shift, out_chrom, out_pos, best_gwin, has,
-            out_strand, pair_drops)
+            ori, out_strand, pair_drops)
 
 
 def build_genome_s2(genome: Genome, segments=None,
@@ -362,15 +351,17 @@ class CoarseMapper:
     spans; results then carry SEGMENT indices in chromosome_id and
     LOCAL window ordinals in global_window_id, which the region-sharded
     mapper converts back.  build_direct_probe=False keeps the binary-search
-    probe (no cuckoo table), for several regions sharing one device."""
+    probe (no cuckoo table), for several regions sharing one device.
+    build_index=False stages the genome and the window geometry only (the
+    table-sharded mapper, parallel/sharded.py, builds its own shards)."""
 
     supports_fused_scores = True
 
     def __init__(self, genome: Genome, opts: ProgramOptions, device,
                  sig_batch: int = 4096, load_index_from: str = "",
-                 segments=None, build_direct_probe: bool = True):
+                 segments=None, build_direct_probe: bool = True,
+                 build_index: bool = True):
         opts.validate()
-        check_supported(opts)
         self.opts = opts
         self.genome = genome
         self.device = torch.device(device)
@@ -392,6 +383,16 @@ class CoarseMapper:
         self.table.win_pos = torch.from_numpy(win_pos).to(self.device)
         self.table.win_chrom = torch.from_numpy(win_chrom).to(self.device)
         self.table.num_windows = len(win_pos)
+        self._genome_s2 = None
+        # dropped-keys mask of the read set (parity mode); None until
+        # ensure_read_drops or map_reads sets it
+        self.dropped = None
+        # (ids [N, K] uint32, ori [N, K] int8) of the last map_reads with
+        # collect_candidates
+        self.last_candidates = None
+        self.index = None
+        if not build_index:
+            return
         if load_index_from:
             self.index = mi.CsrIndex.load(load_index_from, self.device)
             if self.index.kmer_length != opts.kmer_length:
@@ -401,10 +402,6 @@ class CoarseMapper:
         self.index.build_buckets()
         if opts.probe_cap < 1023 and build_direct_probe:
             self.index.build_cuckoo()
-        self._genome_s2 = None
-        # dropped-keys mask of the read set (parity mode); None until
-        # ensure_read_drops or map_reads sets it
-        self.dropped = None
 
     # -- index construction ------------------------------------------------
     def _window_geometry(self):
@@ -520,10 +517,11 @@ class CoarseMapper:
 
     # -- the per-batch step --------------------------------------------------
     def _map_batch(self, read_bases: torch.Tensor, read_len: torch.Tensor,
-                   read_valid: torch.Tensor):
+                   read_valid: torch.Tensor, collect_candidates: bool = False):
         """One read batch -> (packed [B, 7] int32: ori, hamming, shift,
         chrom, pos, window id (-1 unmapped), bs strand; overflow [5]
-        int64 in OVERFLOW_KEYS order)."""
+        int64 in OVERFLOW_KEYS order), and with collect_candidates the
+        voted candidate ids [B, K] and their SHD orientations [B, K]."""
         opts = self.opts
         b = read_bases.shape[0]
         kcap = opts.candidates_per_read_cap
@@ -567,7 +565,7 @@ class CoarseMapper:
         ids, _, num_kept = mi.vote_candidates_fnc_auto(
             cand, opts.min_table_hits, kcap)
         (out_ori, out_ham, out_shift, out_chrom, out_pos, best_gwin, has,
-         out_strand, pair_drops) = coarse_pairs_best(
+         ori, out_strand, pair_drops) = coarse_pairs_best(
             ids, read_bases, read_len, opts, t.genome_hi, t.genome_lo,
             t.win_pos, t.win_chrom, t.chrom_offset, t.chrom_len)
         out_gwin = torch.where(has, best_gwin, torch.full_like(best_gwin, -1))
@@ -577,6 +575,11 @@ class CoarseMapper:
         overflow = torch.stack([(counts > opts.probe_cap).sum(),
                                 (num_kept > kcap).sum(), pair_drops,
                                 tail_drops, head_drops])
+        if collect_candidates:
+            # the reference's COUNT_WINDOW_HITS instrumentation
+            # (main_gpu.cu:555-574, 824-852): each read's candidate windows
+            # after the vote and the SHD orientation of each
+            return packed, overflow, ids, ori
         return packed, overflow
 
     def stage_reads_device(self, read_bases: np.ndarray,
@@ -615,6 +618,10 @@ class CoarseMapper:
         pool = int((limit - self.resident_bytes()) // per_read)
         return min(max(bsz, (pool // bsz) * bsz), n_pad)
 
+    def memory_bytes(self) -> int:
+        """Device bytes of the window index."""
+        return self.index.memory_bytes()
+
     def stats(self, overflow: np.ndarray) -> Dict[str, int]:
         out = {k: int(v) for k, v in zip(OVERFLOW_KEYS, overflow)}
         out["cuckoo_direct_probe"] = int(self.index.cuckoo_keys is not None)
@@ -628,12 +635,14 @@ class CoarseMapper:
         return self._genome_s2
 
     def map_reads_packed(self, read_bases: np.ndarray,
-                         read_lengths: np.ndarray, with_scores: bool = False):
+                         read_lengths: np.ndarray, with_scores: bool = False,
+                         collect_candidates: bool = False):
         """The coarse step over all reads with the key drops as they stand
         (map_reads sets them first): (packed [N, 7] int32 rows as
         _map_batch packs them, overflow [5] int64, and with_scores the
         fused STEP-2 bundle (scores [10, 2N] int16, tb_ops [2N, E] uint8,
-        tb_status [2N] int8), else None), numpy on the host."""
+        tb_status [2N] int8), else None), numpy on the host.
+        collect_candidates sets last_candidates."""
         opts = self.opts
         n, lr = read_bases.shape
         if lr > opts.max_read_length:
@@ -642,16 +651,18 @@ class CoarseMapper:
         bsz = opts.batchsize
         packed_parts, overflow = [], torch.zeros(5, dtype=torch.int64,
                                                  device=self.device)
-        step2_parts = []
+        step2_parts, cand_parts = [], []
         pool_n = self.read_pool_size(n, bsz) if n else 0
         for c0 in range(0, n, pool_n or 1):
             c1 = min(c0 + pool_n, n)
             bases, lens, valid, n_pad = self.stage_reads_device(
                 read_bases[c0:c1], read_lengths[c0:c1])
-            pool_parts, pool_step2 = [], []
+            pool_parts, pool_step2, pool_cand = [], [], []
             for s in range(0, n_pad, bsz):
                 sl = slice(s, s + bsz)
-                p, o = self._map_batch(bases[sl], lens[sl], valid[sl])
+                p, o, *cand = self._map_batch(bases[sl], lens[sl], valid[sl],
+                                              collect_candidates)
+                pool_cand.append(cand)
                 pool_parts.append(p)
                 overflow += o
                 if with_scores:
@@ -660,6 +671,9 @@ class CoarseMapper:
                         opts, t.chrom_offset, t.chrom_len, self.genome_s2(),
                         bases[sl], lens[sl], p))
             packed_parts.append(torch.cat(pool_parts)[:c1 - c0])
+            if collect_candidates:
+                cand_parts.append([torch.cat(col)[:c1 - c0].cpu()
+                                   for col in zip(*pool_cand)])
             if with_scores:
                 k = 2 * (c1 - c0)
                 step2_parts.append((
@@ -668,6 +682,12 @@ class CoarseMapper:
                     torch.cat([x[2] for x in pool_step2])[:k]))
         packed = (torch.cat(packed_parts).cpu().numpy() if packed_parts
                   else np.zeros((0, 7), np.int32))
+        if collect_candidates:
+            kcap = opts.candidates_per_read_cap
+            ids, ori = ([torch.cat(col).numpy() for col in zip(*cand_parts)]
+                        if cand_parts else [np.zeros((0, kcap))] * 2)
+            self.last_candidates = (ids.astype(np.uint32),
+                                    ori.astype(np.int8))
         bundle = None
         if with_scores:
             if step2_parts:
@@ -681,18 +701,21 @@ class CoarseMapper:
         return packed, overflow.cpu().numpy(), bundle
 
     def map_reads(self, read_bases: np.ndarray, read_lengths: np.ndarray,
-                  with_scores: bool = False):
+                  with_scores: bool = False, collect_candidates: bool = False):
         """Map all reads: [N, L] int8 padded bases, [N] lengths.
 
         with_scores: also run the fused STEP 2 per batch and return
         (results, (scores [10, 2N] int16, tb_ops [2N, 48] uint8,
         tb_status [2N] int8)), or (results, scores) when
-        opts.step2_device_traceback is False."""
+        opts.step2_device_traceback is False.  collect_candidates: also
+        set last_candidates = (ids [N, K] uint32, SENTINEL where empty;
+        ori [N, K] int8), every read's voted candidate windows and the SHD
+        orientation of each (eval/window_stats.py reads them)."""
         # parity mode: the read-side key drops of this read set, unless a
         # chunked caller has set them from the whole set already
         self.ensure_read_drops(read_bases, read_lengths)
         packed, overflow, bundle = self.map_reads_packed(
-            read_bases, read_lengths, with_scores)
+            read_bases, read_lengths, with_scores, collect_candidates)
         results = CoarseResults(
             orientation=packed[:, 0].astype(np.int8),
             hamming=packed[:, 1].astype(np.int32),

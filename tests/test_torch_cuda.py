@@ -483,6 +483,75 @@ def test_regions_with_scores_card_equals_cpu(dev):
     assert (rh.orientation != 3).mean() > 0.4
 
 
+@pytest.mark.parametrize("mode", ["threeN", "undirectional"])
+def test_mesh_with_scores_card_equals_cpu(dev, mode):
+    """A logical 2 x 2 mesh with every position the card (the table
+    shards' probes, the gathers in table order, the per-data-shard vote,
+    SHD and fused STEP 2) against the same mesh on the CPU: rows, stats
+    and bundle equal; and, no counter being over, the single mapper's
+    rows on the card."""
+    from hashreadmapper_tpu_torch.parallel.sharded import (
+        ShardedCoarseMapper, make_mesh)
+    from hashreadmapper_tpu_torch.pipeline.engine import (OVERFLOW_KEYS,
+                                                          CoarseMapper)
+    genome, reads, lengths, _ = _four_strand_case()
+    opts = _small_case_opts(mode)
+    outs = [ShardedCoarseMapper(genome, opts, make_mesh(2, 2, [d] * 4))
+            .map_reads(reads, lengths, with_scores=True)
+            for d in (dev, "cpu")]
+    (rc_, bc), (rh, bh) = outs
+    for f in RESULT_FIELDS:
+        np.testing.assert_array_equal(getattr(rc_, f), getattr(rh, f), f)
+    assert rc_.stats == rh.stats
+    assert not any(rc_.stats[k] for k in OVERFLOW_KEYS)
+    for c, h in zip(bc, bh):
+        np.testing.assert_array_equal(c, h)
+    single = CoarseMapper(genome, opts, dev).map_reads(reads, lengths)
+    for f in RESULT_FIELDS:
+        np.testing.assert_array_equal(getattr(rc_, f), getattr(single, f), f)
+    assert (rh.orientation != 3).mean() > 0.4
+
+
+def test_kernels_launch_on_the_card_of_their_inputs(dev, monkeypatch):
+    """cuda:0 current, every kernel's inputs on cuda:1: each kernel's card
+    test above at one shape runs there and equals its plain version, and
+    the current device is still cuda:0; then a 1 x 2 mesh over both cards
+    (peer copies of the table shards' lists) equals the CPU's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    other = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        test_minhash_kernel_equals_plain(other, "both", 16, 16)
+        test_signature_stage_kernel_equals_plain(other, "both", "ct", False,
+                                                 16)
+        test_sig_min_murmur_kernel_equals_plain(other, 16, 129, 113, 16,
+                                                torch.int64)
+        test_vote_kernel_equals_plain(other, 32, 16, 4, 8)
+        test_shd_best_kernel_equals_plain(other, 4, 160)
+        test_shd_hamming_matrix_kernel_equals_plain(other, 4, 160, 300)
+        test_shd_pairs_best_kernel_equals_plain(other, "threeN", dict())
+        test_sw_pass_kernel_equals_plain(other, 300, 128, 128)
+        test_sw_forward_and_reverse_kernels_equal_plain(other, 128, 128, 64,
+                                                        torch.int8)
+        test_shift_sub_kernel_equals_plain(other, 128, 128, 300)
+        test_fill_kernel_equals_plain(other, 128, True, "int8")
+        test_traceback_kernel_equals_plain(other, 301, 128, 128, "fused",
+                                           monkeypatch)
+        assert torch.cuda.current_device() == 0
+        from hashreadmapper_tpu_torch.parallel.sharded import (
+            ShardedCoarseMapper, make_mesh)
+        genome, reads, lengths, _ = _four_strand_case()
+        opts = _small_case_opts("threeN")
+        outs = [ShardedCoarseMapper(genome, opts, make_mesh(1, 2, devs))
+                .map_reads(reads, lengths, with_scores=True)
+                for devs in (None, ["cpu"] * 2)]
+    (rc_, bc), (rh, bh) = outs
+    for f in RESULT_FIELDS:
+        np.testing.assert_array_equal(getattr(rc_, f), getattr(rh, f), f)
+    for c, h in zip(bc, bh):
+        np.testing.assert_array_equal(c, h)
+
+
 def _pairs(rng, p, lq, lr):
     """Reads cut from their ref with substitutions and a 0-3 base indel,
     every third pair random; every seventh a full-length exact copy, which

@@ -37,7 +37,8 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 assert len(names) >= 30, names
 for mod in ("parallel.segments", "parallel.region_sharded",
-            "pipeline.window_stream"):
+            "pipeline.window_stream", "parallel.sharded",
+            "parallel.multihost", "eval.analysis", "utils.tracing"):
     assert pkg.__name__ + "." + mod in names, mod
 print("IMPORTED", len(names))
 """
