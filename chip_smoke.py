@@ -68,6 +68,21 @@ Phase 9  the data x table mesh at the flagship width, a logical 2 x 4
          byte; two processes of 2 regions each, merged over gloo (the
          script runs itself with --region-worker), == the single-process
          4-region mapper; a 1 x 2 mesh over two cards where there are two.
+Phase 10 the captured CUDA graphs of the batch steps (pipeline/graphs.py:
+         a read batch, with its fused STEP 2, and a window batch are one
+         replay each) against the same steps run eagerly, in every mode
+         above (flagship 3N, --undirectional, parity, --regions 4, the
+         window stream): every batch's packed rows, overflow, score rows,
+         traceback entries and status (the window stream's rows) bit for
+         bit; the CLI's SAM and VCF with every step eager byte for byte
+         the graph run's; coarse and coarse + STEP 2 reads/s and
+         map_genome reads/s, graph and eager alternated (medians of 3);
+         host launches (kernel and graph launches, copies, fills), device
+         launches and the card's busy share of each under torch.profiler;
+         the captures' seconds, the card's one graph pool in bytes, and
+         the flagship CLI's whole run graph and eager alternated.  The
+         launch counts of every phase count a replay as the launches its
+         capture recorded.
 Phase 4  a chr1-sized (248,956,422 bp) window index resident on the card,
          coarse-mapping 49,152 planted reads; then the same genome in two
          window regions (per-read results equal the single mapper's), and
@@ -81,9 +96,11 @@ when no CUDA device is available.  Imports nothing of JAX and nothing of
 the JAX package.
 """
 
+import contextlib
 import gzip
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1228,12 +1245,18 @@ def sam_fractions(label, sam_path, n_reads, starts, junk):
 
 def launches_per_batch(label, mapper, padded, lens):
     """Launch counts of one steady map_reads(with_scores) over the pool,
-    per 4,096-read batch, and how many of its tracebacks' pairs kept
-    their directions in shared memory."""
+    per 4,096-read batch (a batch is a graph replay, which counts the
+    launches its capture recorded), and how many of its tracebacks' pairs
+    kept their directions in shared memory, from the eager step of the
+    same batches (a replay calls no wrapper to ask)."""
     from hashreadmapper_tpu_torch.ops import bandtb
     kernels = kernel_wrappers()
+    mapper.map_reads(padded, lens, with_scores=True)
     for k in kernels.values():
         k.launches = 0
+    mapper.map_reads(padded, lens, with_scores=True)
+    n_batches = -(-len(lens) // mapper.opts.batchsize)
+    per = {name: k.launches / n_batches for name, k in kernels.items()}
     real, seen = bandtb.traceback, []
 
     def asking_for_spills(*args, need=None, **kw):
@@ -1242,24 +1265,27 @@ def launches_per_batch(label, mapper, padded, lens):
         return tuple(out)
     bandtb.traceback = asking_for_spills
     try:
-        mapper.map_reads(padded, lens, with_scores=True)
+        b, l, v, n_pad = mapper.stage_reads_device(padded, lens)
+        bsz = mapper.opts.batchsize
+        for s in range(0, n_pad, bsz):
+            mapper._batch_step(b[s:s + bsz], l[s:s + bsz], v[s:s + bsz],
+                               with_scores=True)
     finally:
         bandtb.traceback = real
-    n_batches = -(-len(lens) // mapper.opts.batchsize)
-    per = {name: k.launches / n_batches for name, k in kernels.items()}
     ran, spilled = (sum(int(x) for x in col) for col in zip(*seen))
     log(f"{label} launches per {mapper.opts.batchsize}-read batch "
-        f"(map_reads with scores, {n_batches} batches): {per}; of the "
-        f"{ran} pairs its {len(seen)} tracebacks ran, {spilled} spilled "
-        f"their directions to device memory")
+        f"(map_reads with scores, {n_batches} batches, one graph replay "
+        f"each): {per}; of the {ran} pairs its {len(seen)} tracebacks ran "
+        f"(the eager step of the same batches), {spilled} spilled their "
+        f"directions to device memory")
     return per
 
 
 def profiled_launches(label, mapper, padded, lens):
     """Every device launch (kernels, copies, fills) of one steady
     map_reads(with_scores=True) over the pool, under torch.profiler: the
-    count per 4,096-read batch, the device time and the card's busy share
-    of the call."""
+    count per 4,096-read batch, the host's launches, the device time and
+    the card's busy share of the call."""
     return profiled(label, lambda: mapper.map_reads(padded, lens,
                                                     with_scores=True),
                     f"map_reads(with_scores=True) of {len(lens)} reads",
@@ -1267,10 +1293,18 @@ def profiled_launches(label, mapper, padded, lens):
                     f"{mapper.opts.batchsize}-read batch")
 
 
+# the host's calls that put work on the card's queue: kernel and graph
+# launches, copies and fills (runtime and driver API names)
+HOST_LAUNCH = re.compile(r"^cu(da)?(LaunchKernel|GraphLaunch|Memcpy|Memset)")
+
+
 def profiled(label, fn, what, n_batches, unit):
     """Every device launch of one fn() under torch.profiler: the count per
-    batch (`unit`), the device time, the card's busy share of the call and
-    the hand-written kernels by name."""
+    batch (`unit`), the host's launches per batch (kernel and graph
+    launches, copies and fills it enqueued), the device time, the card's
+    busy share of the call and the hand-written kernels by name.  Returns
+    {"device": device launches a batch, "host": host launches a batch,
+    "busy": busy share}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1280,9 +1314,15 @@ def profiled(label, fn, what, n_batches, unit):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
     if not on_device:
         raise AssertionError(f"{label}: the profiler saw no device activity")
+    host = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and HOST_LAUNCH.match(e.name):
+            host[e.name] = host.get(e.name, 0) + 1
+    n_host = sum(host.values())
     device_s = sum(e.time_range.elapsed_us() for e in on_device) / 1e6
     by_name = {}
     for e in on_device:
@@ -1295,13 +1335,15 @@ def profiled(label, fn, what, n_batches, unit):
            for k, (n, t) in by_name.items()
            if "(anonymous namespace)::" in k and "at::" not in k}
     log(f"{label} torch.profiler, {what}: {len(on_device)} device launches "
-        f"({len(on_device) / n_batches:.1f} per {unit}), device time "
-        f"{device_s * 1e3:.3f} ms, wall under the "
+        f"({len(on_device) / n_batches:.1f} per {unit}), host launches "
+        f"{n_host} ({n_host / n_batches:.1f} per {unit}: {host}), device "
+        f"time {device_s * 1e3:.3f} ms, wall under the "
         f"profiler {wall * 1e3:.3f} ms, card busy {device_s / wall:.4f} of "
         f"the call; most device time: "
         f"{[(k[:48], n, round(t / 1e3, 3)) for k, (n, t) in top]} "
         f"(name, launches, ms); the hand-written kernels: {own}")
-    return len(on_device) / n_batches
+    return {"device": len(on_device) / n_batches,
+            "host": n_host / n_batches, "busy": device_s / wall}
 
 
 def phase2(tmp):
@@ -1382,7 +1424,8 @@ def phase2(tmp):
     log(f"phase2 STEP-2 pairs: {counts}")
     per_batch = launches_per_batch("phase2", mapper, padded, lens)
     per_batch["every device launch"] = profiled_launches(
-        "phase2", mapper, padded, lens)
+        "phase2", mapper, padded, lens)["device"]
+    GRAPH_CASES.append(("flagship 3N", mapper, padded, lens, argv, out))
     return launches, per_batch, res, reads, chrom, starts, junk
 
 
@@ -1520,7 +1563,9 @@ def phase5(tmp, res, chrom, mappers):
     padded[:, :READ_LEN] = reads
     per_batch = launches_per_batch("phase5", res_u["mapper"], padded, lens)
     per_batch["every device launch"] = profiled_launches(
-        "phase5", res_u["mapper"], padded, lens)
+        "phase5", res_u["mapper"], padded, lens)["device"]
+    GRAPH_CASES.append(("--undirectional", res_u["mapper"], padded, lens,
+                        argv + ["--undirectional"], out))
     # card == CPU on the directional mappers' indexes (the 2F tables are
     # the same), switched to the undirectional step
     for m in mappers.values():
@@ -1567,6 +1612,9 @@ def phase6(tmp, res, chrom):
     res_p["mapper"].opts.min_table_hits = 2
     log(f"phase6 with --minTableHits 4 instead: planted mapped "
         f"{float((r4.orientation != 3)[~junk].mean()):.6f}")
+    GRAPH_CASES.append(("parity", res_p["mapper"], padded, lens,
+                        flags + ["--genomefile", os.path.join(tmp, "g.fa"),
+                                 "-i", fq], out))
     mappers = build_mappers("phase6", res["genome"], flags)
     card_equals_cpu("phase6", mappers, reads, 1024, 0)
     return launches, frac
@@ -1684,13 +1732,19 @@ def phase7(res, reads, starts, junk):
     r, wall, launches = counted("phase7 window stream map_genome",
                                 lambda: mapper.map_genome(genome),
                                 WS_KERNELS)
+    # the launches of the steady runs (one replay a window batch; the first
+    # run's count holds the capture's warm-up)
+    kernels = kernel_wrappers()
+    for k in kernels.values():
+        k.launches = 0
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
         mapper.map_genome(genome)
         times.append(time.perf_counter() - t0)
     t_map = statistics.median(times)
-    per_batch = {k: launches[k] / n_batches for k in WS_KERNELS}
+    per_batch = {k: kernels[k].launches / (3 * n_batches)
+                 for k in WS_KERNELS}
     log(f"phase7 window stream, flagship: read index of {N_READS} reads "
         f"built in {t_build:.4f} s ({build_sigs} signature launches, "
         f"{mapper.index.num_tables} tables, cuckoo "
@@ -1707,7 +1761,7 @@ def phase7(res, reads, starts, junk):
     per_batch["every device launch"] = profiled(
         "phase7", lambda: mapper.map_genome(genome),
         f"map_genome of {n_win} windows", n_batches,
-        f"{opts.batchsize}-window batch")
+        f"{opts.batchsize}-window batch")["device"]
     frac = check_fractions("phase7 flagship window stream",
                            *window_fractions(r, starts), junk)
     eng = res["mapper"].map_reads(
@@ -1718,6 +1772,7 @@ def phase7(res, reads, starts, junk):
     log(f"phase7 against the inverted engine on the same reads: "
         f"{int(same.sum())} of {N_READS} reads with the same orientation, "
         f"position and hamming; engine overflow {eng.stats}")
+    WINDOW_CASES.append(("window stream", mapper, genome))
     del mapper
 
     # card == CPU: a 1 Mbp prefix, 8,192 reads planted in it
@@ -1887,6 +1942,8 @@ def phase8(tmp, res, reads):
         f"{'byte for byte the same' if vcf_same else 'differs'}")
     regions_against_single("phase8 --regions 4 SAM", differs, over,
                            res_r["results"].stats)
+    GRAPH_CASES.append(("--regions 4", mapper, padded, lens,
+                        argv + ["--regions", "4"], out))
 
     # a probe cap that no probe of these reads exceeds: byte for byte
     cap = ["--probeCap", "256"]
@@ -2153,7 +2210,7 @@ def phase9(tmp, res, reads, starts, junk):
     per_batch["every device launch"] = profiled(
         "phase9", lambda: mapper.map_reads(padded, lens, with_scores=True),
         f"{d_n}x{t_n} mesh map_reads(with_scores=True) of {N_READS} reads",
-        n_batches, f"{opts.batchsize * d_n}-read mesh batch")
+        n_batches, f"{opts.batchsize * d_n}-read mesh batch")["device"]
     frac = check_fractions("phase9 flagship mesh",
                            *window_fractions(r, starts), junk)
     del mapper
@@ -2225,6 +2282,209 @@ def phase9(tmp, res, reads, starts, junk):
     return launches, per_batch, frac
 
 
+# the graph phase's cases, stashed by the phases that ran them: (label,
+# mapper, padded reads, lengths, the CLI's arguments, its output prefix)
+# and (label, window-stream mapper, genome)
+GRAPH_CASES = []
+WINDOW_CASES = []
+STEP_OUTPUTS = ("packed [B, 7]", "overflow [5]", "scores [10, 2B]",
+                "tb_ops [2B, 48]", "tb_status [2B]")
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """Every batch step eager on the card (CapturedStep.run_eager in place
+    of the graph's replay): the same steps launch by launch, as the port
+    ran them before its graphs."""
+    from hashreadmapper_tpu_torch.pipeline import graphs
+    run = graphs.CapturedStep.run
+    graphs.CapturedStep.run = graphs.CapturedStep.run_eager
+    try:
+        yield
+    finally:
+        graphs.CapturedStep.run = run
+
+
+def graph_equals_eager(label, mapper, padded, lens):
+    """Each CoarseMapper of the case (every region's) over the staged
+    reads: _map_reads_device_scored, one graph replay a batch, against
+    the eager step of each batch: packed rows, overflow, score rows,
+    traceback entries and status, bit for bit."""
+    batches = 0
+    for m in getattr(mapper, "mappers", [mapper]):
+        m.ensure_empty_drops()
+        b, l, v, n_pad = m.stage_reads_device(padded, lens)
+        bsz = m.opts.batchsize
+        graph = m._map_reads_device_scored(b, l, v, n_pad, bsz)
+        overflow = torch.zeros_like(graph[1])
+        for s in range(0, n_pad, bsz):
+            eager = m._batch_step(b[s:s + bsz], l[s:s + bsz], v[s:s + bsz],
+                                  with_scores=True)
+            overflow += eager[1]
+            p = slice(2 * s, 2 * (s + bsz))
+            for name, g, e in zip(STEP_OUTPUTS,
+                                  (graph[0][s:s + bsz], None,
+                                   graph[2][:, p], graph[3][p], graph[4][p]),
+                                  eager):
+                if g is not None and (g.dtype != e.dtype
+                                      or not torch.equal(g, e)):
+                    raise AssertionError(f"phase10 {label} batch "
+                                         f"{s // bsz}: {name} graph != eager")
+            batches += 1
+        if not torch.equal(graph[1], overflow):
+            raise AssertionError(f"phase10 {label}: overflow graph != eager")
+    log(f"phase10 {label}: graph == eager, bit for bit, over {batches} "
+        f"batches: {', '.join(STEP_OUTPUTS)}")
+
+
+def timed_alternately(fns, order=("eager", "graph", "graph", "eager",
+                                  "eager", "graph")):
+    """{side: [seconds]} of each fns[side]() in the given order, the
+    eager side under eager_steps()."""
+    times = {side: [] for side in fns}
+    for side in order:
+        ctx = eager_steps() if side == "eager" else contextlib.nullcontext()
+        with ctx:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[side]()
+            times[side].append(time.perf_counter() - t0)
+    return times
+
+
+def graph_case(tmp, label, mapper, padded, lens, argv, out):
+    """One case of phase 10: graph == eager; the CLI's SAM and VCF with
+    every step eager against the graph run's, byte for byte; coarse and
+    coarse + STEP 2 reads/s, graph and eager alternated (medians of 3);
+    host launches, device launches and busy share of each under
+    torch.profiler; the steps' capture seconds."""
+    from hashreadmapper_tpu_torch import cli
+    graph_equals_eager(label, mapper, padded, lens)
+    n = len(lens)
+    eager_out = os.path.join(tmp, "out_eager")
+    with eager_steps():
+        t0 = time.perf_counter()
+        cli.run(argv + ["-o", eager_out])
+        eager_wall = time.perf_counter() - t0
+    for ext in (".SAM", ".VCF"):
+        with open(out + ext, "rb") as a, open(eager_out + ext, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"phase10 {label}: {ext} of the graph "
+                                     "run != the eager run's")
+    log(f"phase10 {label}: CLI SAM and VCF, graph == eager, byte for byte "
+        f"(the eager CLI run {eager_wall:.3f} s)")
+    rec = {}
+    for what, kw in (("coarse", {}), ("coarse + STEP 2",
+                                      {"with_scores": True})):
+        run = lambda: mapper.map_reads(padded, lens, **kw)
+        run()
+        with eager_steps():
+            run()
+        times = timed_alternately({"graph": run, "eager": run})
+        rate = {side: n / statistics.median(t) for side, t in times.items()}
+        rec[what] = rate
+        log(f"phase10 {label} {what}: graph {rate['graph']:.1f} reads/s, "
+            f"eager {rate['eager']:.1f} (medians of 3, alternated: "
+            f"{ {k: [round(x, 6) for x in v] for k, v in times.items()} } s)"
+            f", {rate['graph'] / rate['eager']:.4f}x")
+    n_batches = -(-n // mapper.opts.batchsize) * len(
+        getattr(mapper, "mappers", [mapper]))
+    unit = f"{mapper.opts.batchsize}-read batch" + (
+        " of a region" if hasattr(mapper, "mappers") else "")
+    for side in ("graph", "eager"):
+        ctx = eager_steps() if side == "eager" else contextlib.nullcontext()
+        with ctx:
+            rec[side] = profiled(
+                f"phase10 {label} {side}",
+                lambda: mapper.map_reads(padded, lens, with_scores=True),
+                f"map_reads(with_scores=True) of {n} reads", n_batches,
+                unit)
+    caps = [round(st.capture_seconds, 4)
+            for m in getattr(mapper, "mappers", [mapper])
+            for st in m._steps.values()]
+    from hashreadmapper_tpu_torch.pipeline import graphs
+    rec["capture_s"] = caps
+    rec["pool_bytes"] = graphs.pool_bytes("cuda")
+    log(f"phase10 {label}: {len(caps)} steps captured, warm-up and capture "
+        f"{caps} s; the card's graph pool now {rec['pool_bytes']} B (every "
+        f"live graph of the card's phases so far)")
+    return rec, eager_wall
+
+
+def window_case(label, ws, genome):
+    """The window stream: every window batch's replay against the eager
+    step (the [B*K, 5] rows and overflow, bit for bit); map_genome reads/s
+    graph and eager alternated; launches and busy share of each."""
+    ws.map_genome(genome)
+    step = next(iter(ws._steps.values()))
+    _, meta = ws._batch_table(genome)
+    meta_dev = torch.from_numpy(meta).cuda()
+    for i in range(len(meta)):
+        got = [x.clone() for x in step.run(ws._window_step, meta_dev[i])]
+        for name, g, e in zip(("rows [B*K, 5]", "overflow [5]"), got,
+                              ws._window_step(meta_dev[i])):
+            if g.dtype != e.dtype or not torch.equal(g, e):
+                raise AssertionError(f"phase10 {label} batch {i}: {name} "
+                                     "graph != eager")
+    with eager_steps():
+        eager = ws.map_genome(genome)
+    same_results(f"phase10 {label} map_genome graph == eager",
+                 ws.map_genome(genome), eager)
+    log(f"phase10 {label}: graph == eager over {len(meta)} window batches, "
+        f"rows and overflow bit for bit; map_genome's results equal")
+    run = lambda: ws.map_genome(genome)
+    times = timed_alternately({"graph": run, "eager": run})
+    rate = {side: ws.num_reads / statistics.median(t)
+            for side, t in times.items()}
+    log(f"phase10 {label} map_genome: graph {rate['graph']:.1f} reads/s, "
+        f"eager {rate['eager']:.1f} (medians of 3, alternated: "
+        f"{ {k: [round(x, 6) for x in v] for k, v in times.items()} } s), "
+        f"{rate['graph'] / rate['eager']:.4f}x; capture "
+        f"{round(step.capture_seconds, 4)} s")
+    rec = {"map_genome": rate, "capture_s": [round(step.capture_seconds, 4)]}
+    for side in ("graph", "eager"):
+        ctx = eager_steps() if side == "eager" else contextlib.nullcontext()
+        with ctx:
+            rec[side] = profiled(
+                f"phase10 {label} {side}", run,
+                f"map_genome of {len(meta)} window batches", len(meta),
+                f"{ws.opts.batchsize}-window batch")
+    return rec
+
+
+def phase10(tmp):
+    """The captured graphs of the batch steps against the eager steps, in
+    every mode the earlier phases ran: flagship 3N, --undirectional,
+    parity, --regions 4 and the window stream; the flagship CLI's
+    whole-run seconds graph and eager alternated; the captures' seconds
+    and the card's graph pool."""
+    from hashreadmapper_tpu_torch import cli
+    from hashreadmapper_tpu_torch.pipeline import graphs
+    out = {}
+    for label, mapper, padded, lens, argv, prefix in GRAPH_CASES:
+        out[label], _ = graph_case(tmp, label, mapper, padded, lens, argv,
+                                   prefix)
+    for label, ws, genome in WINDOW_CASES:
+        out[label] = window_case(label, ws, genome)
+    label, _, _, _, argv, _ = GRAPH_CASES[0]
+    prefix = os.path.join(tmp, "out_alt")
+    walls = timed_alternately({side: lambda: cli.run(argv + ["-o", prefix])
+                               for side in ("graph", "eager")},
+                              ("eager", "graph", "graph", "eager"))
+    out["cli_seconds"] = walls
+    n_cap, cap_s = graphs.capture_stats("cuda")
+    out["pool_bytes"] = graphs.pool_bytes("cuda")
+    log(f"phase10 {label} whole CLI run (a new mapper each, its graphs "
+        f"captured in the run): graph {walls['graph']} s, eager "
+        f"{walls['eager']} s (alternated); {n_cap} graphs captured on the "
+        f"card so far in {cap_s:.3f} s; the card's graph pool "
+        f"{out['pool_bytes']} B, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B")
+    GRAPH_CASES.clear()
+    WINDOW_CASES.clear()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2234,6 +2494,7 @@ def main():
     import hashreadmapper_tpu_torch  # noqa: F401  (fails outside the repo)
     if sys.argv[1:2] == ["--region-worker"]:
         return region_worker(*sys.argv[2:])
+    t_start = time.perf_counter()
     smi = phase0()
     records = phase1()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2246,12 +2507,22 @@ def main():
         launches_reg, per_batch_reg = phase8(tmp, res, reads)
         launches_mesh, per_batch_mesh, _ = phase9(tmp, res, reads, starts,
                                                   junk)
+        graph_rec = phase10(tmp)
     del res
     chr1 = phase4()
     phase8_chr1(chr1)
     phase7_chr1(chr1)
     del chr1
+    from hashreadmapper_tpu_torch.pipeline import graphs
+    n_cap, cap_s = graphs.capture_stats("cuda")
+    graph_rec["captures_in_all"] = n_cap
+    graph_rec["capture_seconds_in_all"] = cap_s
+    graph_rec["pool_bytes_end"] = graphs.pool_bytes("cuda")
+    log(f"graphs: {n_cap} captured on the card in all, {cap_s:.3f} s of "
+        f"warm-up and capture; the card's graph pool at the end "
+        f"{graph_rec['pool_bytes_end']} B")
     check_no_jax()
+    log(f"chip_smoke: every phase in {time.perf_counter() - t_start:.1f} s")
     src = "hashreadmapper_tpu_torch/csrc/"
     ref = "hashreadmapper_tpu/ops/"
     meta = {"minhash": (src + "minhash.cu", ref + "minhash_pallas.py:171"),
@@ -2361,7 +2632,8 @@ def main():
         "device_launches_per_window_batch":
             per_batch_ws["every device launch"],
         "device_launches_per_mesh_batch":
-            per_batch_mesh["every device launch"]}))
+            per_batch_mesh["every device launch"],
+        "graphs": graph_rec}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,7 +29,7 @@ from ..config import ProgramOptions
 from ..io.genome import Genome
 from ..ops import shd
 from ..pipeline.engine import (OVERFLOW_KEYS, SENTINEL, CoarseMapper,
-                               CoarseResults)
+                               CoarseResults, pool_ranges)
 from .sharded import ShardedCoarseMapper
 from .segments import (Segment, partition_windows, regions_for_base_cap,
                        staged_bases, whole_chromosome_segments)
@@ -156,6 +156,7 @@ class RegionShardedMapper:
         devs = ([torch.device("cuda")] if devices is None
                 else [torch.device(d) for d in devices])
         self.device = devs[0] if mesh is None else mesh.first
+        self.mesh = mesh
 
         self.chrom_gwin_base = chrom_gwin_base(genome, opts)
 
@@ -175,6 +176,35 @@ class RegionShardedMapper:
                                              build_direct_probe=direct_probe)
             self.mappers.append(mapper)
             self.build_seconds.append(time.perf_counter() - t0)
+
+    def _map_regions(self, read_bases: np.ndarray, read_lengths: np.ndarray,
+                     with_scores: bool):
+        """Every region's (packed, overflow, bundle) on the host, as
+        CoarseMapper.map_reads_packed returns them.  The reads are staged
+        once a device and every region's batches enqueued (a graph replay
+        a batch on a card) before the first copy to the host (the JAX
+        package's region_sharded.py:219-225).  Regions over a mesh map one
+        after another."""
+        for mapper in self.mappers:
+            mapper.ensure_empty_drops()
+        if self.mesh is not None:
+            return [m.map_reads_packed(read_bases, read_lengths, with_scores)
+                    for m in self.mappers]
+        n, bsz = len(read_lengths), self.opts.batchsize
+        pool_n = min(m.read_pool_size(n, bsz) for m in self.mappers) \
+            if n else 0
+        parts = [[] for _ in self.mappers]
+        for c0, c1 in pool_ranges(n, pool_n):
+            staged = {}
+            for mapper in self.mappers:
+                if mapper.device not in staged:
+                    staged[mapper.device] = mapper.stage_reads_device(
+                        read_bases[c0:c1], read_lengths[c0:c1])
+            for part, mapper in zip(parts, self.mappers):
+                part.append(mapper.map_staged(*staged[mapper.device],
+                                              c1 - c0, with_scores))
+        return [m.fetch_results(part, with_scores)
+                for m, part in zip(self.mappers, parts)]
 
     def map_reads(self, read_bases: np.ndarray, read_lengths: np.ndarray,
                   with_scores: bool = False):
@@ -201,10 +231,9 @@ class RegionShardedMapper:
         region_scores = []
         # the direct probe counts only where every region has it
         direct = 1
-        for r_i, mapper in enumerate(self.mappers):
-            mapper.ensure_empty_drops()
-            packed, ovf, bundle = mapper.map_reads_packed(
-                read_bases, read_lengths, with_scores)
+        for r_i, (mapper, (packed, ovf, bundle)) in enumerate(zip(
+                self.mappers, self._map_regions(read_bases, read_lengths,
+                                                with_scores))):
             region_scores.append(bundle)
             stats = mapper.stats(ovf)
             for k in OVERFLOW_KEYS:

@@ -14,11 +14,21 @@ mirrored SHD evaluation).  One device; every tensor lives on the mapper's
 plain versions, with identical results).  A mapper built over segments
 (parallel/segments.py) indexes and stages only their window spans; the
 region-sharded mapper (parallel/region_sharded.py) holds one per region.
+
+The batch step (_batch_step: _map_batch, and with scores
+fused_step2_scores) is the counterpart of the JAX engine's jitted
+dispatch units.  Over a staged read pool it runs through
+pipeline/graphs.py: on a CUDA device one replay of a captured CUDA graph
+a batch, on the CPU the same step eagerly on the same static buffers;
+each batch's outputs are copied into the pool's results on the device
+(_map_reads_device, _map_reads_device_scored, map_pool_scanned) before
+the next batch runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional
 
 import numpy as np
@@ -32,6 +42,7 @@ from ..ops import bandtb, encode, minhash, shd, swdev
 from ..ops.shd_kernel import pack_genome_planes
 from ..parallel.segments import segment_base_span
 from ..utils.progress import ProgressReporter
+from . import graphs
 
 SENTINEL = 0xFFFFFFFF
 _BIG = 0x3FFFFFFF
@@ -343,6 +354,11 @@ def fused_step2_scores(opts: ProgramOptions, chrom_offset, chrom_len,
     return scores.to(torch.int16), tb_ops, tb_status
 
 
+def pool_ranges(n: int, pool_n: int):
+    """(c0, c1) of the read pools of n reads, pool_n at a time."""
+    return [(c0, min(c0 + pool_n, n)) for c0 in range(0, n, pool_n or 1)]
+
+
 class CoarseMapper:
     """The window index of one genome on one device, and the coarse
     mapping of read batches against it.
@@ -390,6 +406,10 @@ class CoarseMapper:
         # (ids [N, K] uint32, ori [N, K] int8) of the last map_reads with
         # collect_candidates
         self.last_candidates = None
+        # the batch steps' CapturedSteps by shape, outputs and options, and
+        # the key drops they were captured with
+        self._steps = {}
+        self._steps_dropped = None
         self.index = None
         if not build_index:
             return
@@ -582,15 +602,133 @@ class CoarseMapper:
             return packed, overflow, ids, ori
         return packed, overflow
 
+    def _batch_step(self, read_bases: torch.Tensor, read_len: torch.Tensor,
+                    read_valid: torch.Tensor, with_scores: bool = False,
+                    collect_candidates: bool = False):
+        """The eager batch step: _map_batch's (packed, overflow[, ids,
+        ori]), then with_scores the fused STEP 2 of the same batch
+        (scores, tb_ops, tb_status): the JAX engine's _map_batch_impl and
+        _map_batch_scored_at_impl.  A CapturedStep captures and replays
+        it; it stays callable as it is."""
+        out = self._map_batch(read_bases, read_len, read_valid,
+                              collect_candidates)
+        if with_scores:
+            t = self.table
+            out = (*out, *fused_step2_scores(
+                self.opts, t.chrom_offset, t.chrom_len, self.genome_s2(),
+                read_bases, read_len, out[0]))
+        return out
+
+    def _run_step(self, bases, lens, valid, with_scores: bool,
+                  collect_candidates: bool):
+        """One batch through its CapturedStep (one replay on a CUDA
+        device, captured at its first run; the eager step on the CPU):
+        the step's static outputs, which the next run overwrites.  The
+        key drops and the STEP-2 genome are set before any capture, outside
+        the graph pool, and a replaced drop mask drops the steps captured
+        with the old one."""
+        self.ensure_empty_drops()
+        if with_scores:
+            self.genome_s2()
+        if self._steps_dropped is not self.dropped:
+            self._steps.clear()
+            self._steps_dropped = self.dropped
+        key = (tuple(bases.shape), with_scores, collect_candidates,
+               graphs.options_key(self.opts))
+        step = self._steps.get(key)
+        if step is None:
+            step = self._steps[key] = graphs.CapturedStep((bases, lens,
+                                                           valid))
+        return step.run(functools.partial(
+            self._batch_step, with_scores=with_scores,
+            collect_candidates=collect_candidates), bases, lens, valid)
+
+    def _map_batch_at(self, all_bases, all_lens, all_valid, start: int,
+                      bsz: int, collect_candidates: bool = False):
+        """Rows start:start + bsz of a staged pool, one step: the static
+        (packed, overflow[, ids, ori]); copy them out before the next
+        batch runs."""
+        sl = slice(start, start + bsz)
+        return self._run_step(all_bases[sl], all_lens[sl], all_valid[sl],
+                              False, collect_candidates)
+
+    def _map_batch_scored_at(self, all_bases, all_lens, all_valid,
+                             start: int, bsz: int):
+        """_map_batch_at with the fused STEP 2 in the same step: the static
+        (packed, overflow, scores [10, 2 bsz], tb_ops, tb_status)."""
+        sl = slice(start, start + bsz)
+        return self._run_step(all_bases[sl], all_lens[sl], all_valid[sl],
+                              True, False)
+
+    def _pool_device(self, all_bases, all_lens, all_valid, n_pad: int,
+                     bsz: int, with_scores: bool, collect_candidates: bool):
+        """Every batch of a staged pool, one step each, each step's outputs
+        copied into the pool's results on the device before the next step
+        runs: the step's outputs over n_pad rows (overflow summed)."""
+        if n_pad <= 0 or n_pad % bsz or all_bases.shape[0] < n_pad:
+            raise ValueError(f"a staged pool of {all_bases.shape[0]} rows "
+                             f"cannot run {n_pad} in batches of {bsz}")
+        # the batch axis of each output; None: summed over the batches
+        axes = ((0, None) + ((0, 0) if collect_candidates else ())
+                + ((1, 0, 0) if with_scores else ()))
+        nb = n_pad // bsz
+        outs = None
+        for i in range(nb):
+            sl = slice(i * bsz, (i + 1) * bsz)
+            got = self._run_step(all_bases[sl], all_lens[sl], all_valid[sl],
+                                 with_scores, collect_candidates)
+            if outs is None:
+                outs = [torch.zeros_like(x) if a is None else x.new_empty(
+                    x.shape[:a] + (x.shape[a] * nb,) + x.shape[a + 1:])
+                        for x, a in zip(got, axes)]
+            for dst, x, a in zip(outs, got, axes):
+                if a is None:
+                    dst += x
+                else:
+                    dst.narrow(a, i * x.shape[a], x.shape[a]).copy_(x)
+        return tuple(outs)
+
+    def _map_reads_device(self, all_bases, all_lens, all_valid, n_pad: int,
+                          bsz: int, collect_candidates: bool = False):
+        """Every batch of a staged pool, results on the device: (packed
+        [n_pad, 7], overflow [5], (ids, ori) [n_pad, K] with
+        collect_candidates, else None).  Nothing is copied to the host, so a
+        caller driving several mappers (the regions) enqueues all of
+        their work first."""
+        out = self._pool_device(all_bases, all_lens, all_valid, n_pad, bsz,
+                                False, collect_candidates)
+        return out[0], out[1], (out[2:] if collect_candidates else None)
+
+    def _map_reads_device_scored(self, all_bases, all_lens, all_valid,
+                                 n_pad: int, bsz: int):
+        """_map_reads_device with the fused STEP 2: (packed [n_pad, 7],
+        overflow [5], scores [10, 2 n_pad] int16, tb_ops [2 n_pad, E]
+        uint8, tb_status [2 n_pad] int8), on the device."""
+        return self._pool_device(all_bases, all_lens, all_valid, n_pad, bsz,
+                                 True, False)
+
+    def map_pool_scanned(self, all_bases, all_lens, all_valid, n_pad: int,
+                         bsz: int):
+        """The coarse step over a staged pool, one step a batch written
+        into a preallocated [n_pad, 7] (the JAX engine's one-dispatch
+        lax.scan): (packed, overflow [5]) on the device."""
+        return self._pool_device(all_bases, all_lens, all_valid, n_pad, bsz,
+                                 False, False)
+
     def stage_reads_device(self, read_bases: np.ndarray,
                            read_lengths: np.ndarray):
         """Upload reads once, padded to max_read_length columns and a
-        batchsize multiple of rows -> (bases, lens, valid, n_pad)."""
+        batchsize multiple of rows -> (bases, lens, valid, n_pad): the one
+        batch shape of every pool, so a short last pool replays the same
+        graph."""
         opts = self.opts
         n, lr = read_bases.shape
+        if lr > opts.max_read_length:
+            raise ValueError(f"reads longer than max_read_length "
+                             f"({lr} > {opts.max_read_length})")
         bsz = opts.batchsize
         n_pad = ((n + bsz - 1) // bsz) * bsz
-        bases = np.zeros((n_pad, max(lr, opts.max_read_length)), np.int8)
+        bases = np.zeros((n_pad, opts.max_read_length), np.int8)
         bases[:n, :lr] = read_bases
         lens = np.zeros(n_pad, np.int32)
         lens[:n] = read_lengths
@@ -643,62 +781,59 @@ class CoarseMapper:
         fused STEP-2 bundle (scores [10, 2N] int16, tb_ops [2N, E] uint8,
         tb_status [2N] int8), else None), numpy on the host.
         collect_candidates sets last_candidates."""
-        opts = self.opts
-        n, lr = read_bases.shape
-        if lr > opts.max_read_length:
-            raise ValueError(f"reads longer than max_read_length "
-                             f"({lr} > {opts.max_read_length})")
-        bsz = opts.batchsize
-        packed_parts, overflow = [], torch.zeros(5, dtype=torch.int64,
-                                                 device=self.device)
-        step2_parts, cand_parts = [], []
-        pool_n = self.read_pool_size(n, bsz) if n else 0
-        for c0 in range(0, n, pool_n or 1):
-            c1 = min(c0 + pool_n, n)
-            bases, lens, valid, n_pad = self.stage_reads_device(
-                read_bases[c0:c1], read_lengths[c0:c1])
-            pool_parts, pool_step2, pool_cand = [], [], []
-            for s in range(0, n_pad, bsz):
-                sl = slice(s, s + bsz)
-                p, o, *cand = self._map_batch(bases[sl], lens[sl], valid[sl],
-                                              collect_candidates)
-                pool_cand.append(cand)
-                pool_parts.append(p)
-                overflow += o
-                if with_scores:
-                    t = self.table
-                    pool_step2.append(fused_step2_scores(
-                        opts, t.chrom_offset, t.chrom_len, self.genome_s2(),
-                        bases[sl], lens[sl], p))
-            packed_parts.append(torch.cat(pool_parts)[:c1 - c0])
-            if collect_candidates:
-                cand_parts.append([torch.cat(col)[:c1 - c0].cpu()
-                                   for col in zip(*pool_cand)])
-            if with_scores:
-                k = 2 * (c1 - c0)
-                step2_parts.append((
-                    torch.cat([x[0] for x in pool_step2], dim=1)[:, :k],
-                    torch.cat([x[1] for x in pool_step2])[:k],
-                    torch.cat([x[2] for x in pool_step2])[:k]))
-        packed = (torch.cat(packed_parts).cpu().numpy() if packed_parts
-                  else np.zeros((0, 7), np.int32))
+        n = read_bases.shape[0]
+        pool_n = self.read_pool_size(n, self.opts.batchsize) if n else 0
+        parts = [self.map_staged(
+            *self.stage_reads_device(read_bases[c0:c1], read_lengths[c0:c1]),
+            c1 - c0, with_scores, collect_candidates)
+            for c0, c1 in pool_ranges(n, pool_n)]
+        return self.fetch_results(parts, with_scores, collect_candidates)
+
+    def map_staged(self, bases, lens, valid, n_pad: int, n: int,
+                   with_scores: bool = False,
+                   collect_candidates: bool = False):
+        """Every batch of a staged pool of n reads (n_pad rows, as
+        stage_reads_device returns it), its results left on the device:
+        (packed [n, 7], overflow [5], the bundle (scores [10, 2n], tb_ops
+        [2n, E], tb_status [2n]) or None, (ids, ori) [n, K] or None)."""
+        out = self._pool_device(bases, lens, valid, n_pad,
+                                self.opts.batchsize, with_scores,
+                                collect_candidates)
+        bundle = cand = None
+        if with_scores:
+            sc, to, ts = out[-3:]
+            bundle = (sc[:, :2 * n], to[:2 * n], ts[:2 * n])
         if collect_candidates:
-            kcap = opts.candidates_per_read_cap
-            ids, ori = ([torch.cat(col).numpy() for col in zip(*cand_parts)]
-                        if cand_parts else [np.zeros((0, kcap))] * 2)
+            cand = (out[2][:n], out[3][:n])
+        return out[0][:n], out[1], bundle, cand
+
+    def fetch_results(self, parts, with_scores: bool = False,
+                      collect_candidates: bool = False):
+        """map_staged's results of consecutive pools, joined and copied to
+        the host: (packed, overflow, bundle) as map_reads_packed returns
+        them; collect_candidates sets last_candidates."""
+        def host(xs, dim=0):
+            return torch.cat(xs, dim=dim).cpu().numpy()
+        packed = (host([p[0] for p in parts]) if parts
+                  else np.zeros((0, 7), np.int32))
+        overflow = (sum(p[1] for p in parts).cpu().numpy() if parts
+                    else np.zeros(5, np.int64))
+        if collect_candidates:
+            kcap = self.opts.candidates_per_read_cap
+            ids, ori = ([host([p[3][i] for p in parts]) for i in range(2)]
+                        if parts else [np.zeros((0, kcap))] * 2)
             self.last_candidates = (ids.astype(np.uint32),
                                     ori.astype(np.int8))
         bundle = None
         if with_scores:
-            if step2_parts:
-                bundle = tuple(
-                    torch.cat([x[i] for x in step2_parts],
-                              dim=1 if i == 0 else 0).cpu().numpy()
-                    for i in range(3))
+            if parts:
+                bundle = tuple(host([p[2][i] for p in parts],
+                                    dim=1 if i == 0 else 0)
+                               for i in range(3))
             else:
                 bundle = (np.zeros((10, 0), np.int16),
                           np.zeros((0, 1), np.uint8), np.zeros(0, np.int8))
-        return packed, overflow.cpu().numpy(), bundle
+        return packed, overflow, bundle
 
     def map_reads(self, read_bases: np.ndarray, read_lengths: np.ndarray,
                   with_scores: bool = False, collect_candidates: bool = False):

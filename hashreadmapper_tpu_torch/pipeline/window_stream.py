@@ -17,7 +17,11 @@ applies the read index's drop-all rule for keys carried by more than
 max_results_per_map reads lazily, at probe time.  Every tensor lives on
 the mapper's `device`: a CUDA device runs the hand-written kernels (the
 signature stage, the vote, the fused SHD stage), the CPU their plain
-versions, with identical results.
+versions, with identical results.  A window batch is one step of
+pipeline/graphs.py (the JAX package's jitted _window_batch_impl): on a
+card one replay of a captured CUDA graph, on the CPU the same step
+eagerly; its chromosome's offset and length come in with its positions,
+as device data, so one capture serves every batch of every chromosome.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from ..index import minhash_index as mi
 from ..io.genome import Genome
 from ..ops import minhash, shd
 from ..ops.shd_kernel import pack_genome_planes
+from . import graphs
 from .engine import (OVERFLOW_KEYS, SENTINEL, CoarseResults, best_of_spaces,
                      compact_pairs, pair_spreader, window_bases_device)
 
@@ -66,6 +71,11 @@ class WindowStreamMapper:
             # the direct probe in 3N; parity keeps the binary search, whose
             # exact counts its drop-all rule compares
             self.index.build_cuckoo()
+        # the last genome mapped, its staged bases and planes, and the
+        # window steps captured against them
+        self._genome = None
+        self._staged = None
+        self._steps = {}
 
     def read_signatures(self):
         """The read index's keys, in row blocks of SIG_ROWS: 3N [N, 2F] =
@@ -106,9 +116,10 @@ class WindowStreamMapper:
     def _window_batch(self, genome_concat, genome_hi, genome_lo, goff, clen,
                       win_pos, win_len, win_valid):
         """One batch of B windows of one chromosome (start goff in the
-        staged genome, length clen) -> (packed [B*K, 5] int32 rows: read
-        id (-1 where no pair was kept), hamming, shift, orientation, bs
-        strand; overflow [5] int64 in OVERFLOW_KEYS order)."""
+        staged genome, length clen: 0-d int64 tensors or ints) ->
+        (packed [B*K, 5] int32 rows: read id (-1 where no pair was kept),
+        hamming, shift, orientation, bs strand; overflow [5] int64 in
+        OVERFLOW_KEYS order)."""
         opts = self.opts
         b = win_pos.shape[0]
         kcap = opts.candidates_per_read_cap
@@ -154,7 +165,8 @@ class WindowStreamMapper:
         pos_rep = win_pos[pair_sel // kcap]
         r_len = self.read_lengths.to(torch.int64)[rid_c]
         loc = shd.extended_window_location(
-            pos_rep, torch.full_like(pos_rep, clen), r_len, opts.window_size)
+            pos_rep, torch.as_tensor(clen, device=pos_rep.device), r_len,
+            opts.window_size)
         params = shd.ShdParams(
             window_size=opts.window_size,
             max_ext_len=opts.window_size + opts.max_read_length,
@@ -186,52 +198,91 @@ class WindowStreamMapper:
                                 tail_drops, head_drops])
         return packed, overflow
 
-    def map_genome(self, genome: Genome) -> CoarseResults:
-        """Stream every window of `genome` through the read index in
-        batches of opts.batchsize windows of one chromosome; the per-read
-        best hits, with one copy of the rows to the host at the end."""
-        opts = self.opts
-        dev = self.device
+    def _window_step(self, meta: torch.Tensor):
+        """The window batch of one row of map_genome's batch table: [3B +
+        2] int64 = positions, lengths, validity, then the chromosome's
+        offset in the staged genome and its length."""
+        b = self.opts.batchsize
+        concat, g_hi, g_lo = self._staged
+        return self._window_batch(concat, g_hi, g_lo, meta[3 * b],
+                                  meta[3 * b + 1], meta[:b],
+                                  meta[b:2 * b].to(torch.int32),
+                                  meta[2 * b:3 * b] != 0)
+
+    def _stage_genome(self, genome: Genome):
+        """The genome's bases and bit planes on the device, kept for the
+        next map_genome of the same genome object (the window steps are
+        captured against them); another genome replaces them and drops
+        those steps."""
+        if genome is not self._genome:
+            self._steps.clear()
+            self._genome = self._staged = None
+            concat = torch.from_numpy(np.concatenate(
+                [genome.bases[c].astype(np.int8)
+                 for c in range(genome.num_chromosomes)])).to(self.device)
+            self._staged = (concat, *pack_genome_planes(concat))
+            self._genome = genome
+        return self._staged
+
+    def _batch_table(self, genome: Genome):
+        """(the window batches of `genome`, [nb, 3B + 2] int64): each
+        batch's row of positions, lengths, validity, chromosome offset in
+        the staged genome and chromosome length, uploaded at once; padding
+        windows are position 0, length 0 and not valid."""
+        bsz = self.opts.batchsize
         lens = [genome.chromosome_length(c)
                 for c in range(genome.num_chromosomes)]
-        if sum(lens) >= 2**31:
-            raise ValueError("the window stream stages fewer than 2**31 "
-                             f"bases ({sum(lens)} asked)")
-        chrom_offsets = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(
-            np.int64)
-        concat = torch.from_numpy(np.concatenate(
-            [genome.bases[c].astype(np.int8)
-             for c in range(genome.num_chromosomes)])).to(dev)
-        g_hi, g_lo = pack_genome_planes(concat)
+        chrom_offsets = np.concatenate([[0], np.cumsum(lens)[:-1]])
+        batches = list(genome.iter_window_batches(
+            self.opts.kmer_length, self.opts.window_size, bsz))
+        meta = np.zeros((len(batches), 3 * bsz + 2), np.int64)
+        for i, batch in enumerate(batches):
+            k = len(batch.positions)
+            c = batch.chromosome_id
+            meta[i, :k] = batch.positions
+            meta[i, bsz:bsz + k] = batch.lengths
+            meta[i, 2 * bsz:2 * bsz + k] = 1
+            meta[i, 3 * bsz:] = chrom_offsets[c], lens[c]
+        return batches, meta
 
+    def map_genome(self, genome: Genome) -> CoarseResults:
+        """Stream every window of `genome` through the read index in
+        batches of opts.batchsize windows of one chromosome, one step a
+        batch; the per-read best hits, with one copy of the rows to the
+        host at the end."""
+        opts = self.opts
+        dev = self.device
+        total = sum(genome.chromosome_length(c)
+                    for c in range(genome.num_chromosomes))
+        if total >= 2**31:
+            raise ValueError("the window stream stages fewer than 2**31 "
+                             f"bases ({total} asked)")
+        self._stage_genome(genome)
         bsz = opts.batchsize
         kcap = opts.candidates_per_read_cap
-        batches = list(genome.iter_window_batches(
-            opts.kmer_length, opts.window_size, bsz))
+        batches, meta = self._batch_table(genome)
         nb = len(batches)
-        # every batch's positions, lengths and validity in one upload;
-        # padding rows are position 0, length 0 and not valid
-        pos = np.zeros((nb, bsz), np.int64)
-        wlen = np.zeros((nb, bsz), np.int32)
-        valid = np.zeros((nb, bsz), bool)
-        for i, batch in enumerate(batches):
-            pos[i, :len(batch.positions)] = batch.positions
-            wlen[i, :len(batch.lengths)] = batch.lengths
-            valid[i, :len(batch.positions)] = True
-        pos_dev, wlen_dev, valid_dev = (torch.from_numpy(x).to(dev)
-                                        for x in (pos, wlen, valid))
-        packed_parts = []
-        overflow = torch.zeros(5, dtype=torch.int64, device=dev)
-        for i, batch in enumerate(batches):
-            c = batch.chromosome_id
-            packed, ovf = self._window_batch(
-                concat, g_hi, g_lo, int(chrom_offsets[c]), lens[c],
-                pos_dev[i], wlen_dev[i], valid_dev[i])
-            packed_parts.append(packed)
-            overflow += ovf
-        all_packed = (torch.cat(packed_parts).cpu().numpy() if packed_parts
-                      else np.zeros((0, 5), np.int32))
-        ovf = overflow.cpu().numpy()
+        pos = meta[:, :bsz]
+        if nb:
+            meta_dev = torch.from_numpy(meta).to(dev)
+            key = (bsz, graphs.options_key(opts))
+            step = self._steps.get(key)
+            if step is None:
+                step = self._steps[key] = graphs.CapturedStep((meta_dev[0],))
+            all_packed = overflow = None
+            for i in range(nb):
+                packed, ovf = step.run(self._window_step, meta_dev[i])
+                if all_packed is None:
+                    all_packed = packed.new_empty((nb * packed.shape[0], 5))
+                    overflow = torch.zeros_like(ovf)
+                all_packed[i * packed.shape[0]:(i + 1) * packed.shape[0]] \
+                    .copy_(packed)
+                overflow += ovf
+            all_packed = all_packed.cpu().numpy()
+            ovf = overflow.cpu().numpy()
+        else:
+            all_packed = np.zeros((0, 5), np.int32)
+            ovf = np.zeros(5, np.int64)
 
         n = self.num_reads
         out = CoarseResults(

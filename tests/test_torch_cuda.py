@@ -512,6 +512,112 @@ def test_mesh_with_scores_card_equals_cpu(dev, mode):
     assert (rh.orientation != 3).mean() > 0.4
 
 
+def _eager_pool(mapper, staged, with_scores):
+    """The eager batch step over a staged pool, batch by batch: the
+    outputs of _map_reads_device(_scored) without a graph."""
+    bases, lens, valid, n_pad = staged
+    bsz = mapper.opts.batchsize
+    parts = [mapper._batch_step(bases[s:s + bsz], lens[s:s + bsz],
+                                valid[s:s + bsz], with_scores=with_scores)
+             for s in range(0, n_pad, bsz)]
+    out = [torch.cat([p[0] for p in parts]),
+           torch.stack([p[1] for p in parts]).sum(dim=0)]
+    if with_scores:
+        out += [torch.cat([p[2] for p in parts], dim=1),
+                torch.cat([p[3] for p in parts]),
+                torch.cat([p[4] for p in parts])]
+    return out
+
+
+@pytest.mark.parametrize("mode", ["parity", "threeN", "undirectional"])
+def test_graph_steps_equal_eager(dev, mode):
+    """Each read batch one replay of a captured CUDA graph: the packed rows,
+    overflow, 10 score rows, traceback entries and status of
+    _map_reads_device_scored and map_pool_scanned equal the eager step's,
+    bit for bit; a replay counts the capture's launches (one signature
+    stage a batch, two under --undirectional) and the capture none."""
+    from hashreadmapper_tpu_torch.ops import minhash_kernel as mk_
+    from hashreadmapper_tpu_torch.pipeline.engine import CoarseMapper
+    genome, reads, lengths, _ = _four_strand_case(
+        conv=0.0 if mode == "parity" else 0.9)
+    m = CoarseMapper(genome, _small_case_opts(mode), dev)
+    m.ensure_read_drops(reads, lengths)
+    staged = m.stage_reads_device(reads, lengths)
+    n_batches = staged[3] // m.opts.batchsize
+    eager = _eager_pool(m, staged, True)
+    before = mk_.signature_stage.launches
+    graph = m._map_reads_device_scored(*staged, m.opts.batchsize)
+    torch.cuda.synchronize()
+    per = 2 if mode == "undirectional" else 1
+    # the warm-up launched the first batch's kernels once; the capture none
+    assert mk_.signature_stage.launches - before == per * (n_batches + 1)
+    assert all(s.graph is not None for s in m._steps.values())
+    for g, e in zip(graph, eager):
+        assert g.dtype == e.dtype and torch.equal(g, e)
+    coarse = m.map_pool_scanned(*staged, m.opts.batchsize)
+    for g, e in zip(coarse, eager[:2]):
+        assert torch.equal(g, e)
+    assert (eager[0][:, 0] != 3).float().mean() > 0.4
+
+
+def test_two_regions_on_one_card_graph_equals_eager(dev, monkeypatch):
+    """Two window regions on the card, every region's batches enqueued
+    (one replay each, one graph pool for the card) before the first copy
+    to the host: merged rows, stats and bundle equal the same mapper's
+    with every step eager, and the CPU's."""
+    from hashreadmapper_tpu_torch.parallel.region_sharded import \
+        RegionShardedMapper
+    from hashreadmapper_tpu_torch.pipeline import graphs
+    genome, reads, lengths, _ = _four_strand_case()
+    opts = _small_case_opts("threeN")
+    rm = RegionShardedMapper(genome, opts, 2, devices=[dev],
+                             partition="window")
+    got = rm.map_reads(reads, lengths, with_scores=True)
+    assert all(s.graph is not None for m in rm.mappers
+               for s in m._steps.values())
+    assert graphs.pool_bytes(dev) > 0
+    with monkeypatch.context() as mp:
+        mp.setattr(graphs.CapturedStep, "run", graphs.CapturedStep.run_eager)
+        eager = rm.map_reads(reads, lengths, with_scores=True)
+    cpu = RegionShardedMapper(genome, opts, 2, devices=["cpu"],
+                              partition="window").map_reads(
+        reads, lengths, with_scores=True)
+    for other in (eager, cpu):
+        for f in RESULT_FIELDS + ("global_window_id64",):
+            np.testing.assert_array_equal(getattr(got[0], f),
+                                          getattr(other[0], f), f)
+        assert got[0].stats == other[0].stats
+        for g, o in zip(got[1], other[1]):
+            np.testing.assert_array_equal(g, o)
+
+
+@pytest.mark.parametrize("mode", ["parity", "undirectional"])
+def test_window_stream_graph_equals_eager(dev, mode, monkeypatch):
+    """map_genome with one replay a window batch (one capture for both
+    chromosomes) against the same with the eager step: every field and
+    stat."""
+    from hashreadmapper_tpu_torch.io.genome import Genome
+    from hashreadmapper_tpu_torch.pipeline import graphs
+    from hashreadmapper_tpu_torch.pipeline.window_stream import \
+        WindowStreamMapper
+    g1, reads, lengths, _ = _four_strand_case(
+        conv=0.0 if mode == "parity" else 0.9)
+    seq = g1.seqs_ascii[0].tobytes().decode()
+    genome = Genome(["a", "b"], [seq[:35_000], seq[35_000:]])
+    ws = WindowStreamMapper(reads, lengths, _small_case_opts(
+        mode, batchsize=64, probe_head_budget_per_read=8,
+        max_results_per_map=40), dev)
+    got = ws.map_genome(genome)
+    assert len(ws._steps) == 1
+    with monkeypatch.context() as mp:
+        mp.setattr(graphs.CapturedStep, "run", graphs.CapturedStep.run_eager)
+        eager = ws.map_genome(genome)
+    for f in RESULT_FIELDS:
+        np.testing.assert_array_equal(getattr(got, f), getattr(eager, f), f)
+    assert got.stats == eager.stats
+    assert set(np.unique(got.chromosome_id[got.orientation != 3])) == {0, 1}
+
+
 def test_kernels_launch_on_the_card_of_their_inputs(dev, monkeypatch):
     """cuda:0 current, every kernel's inputs on cuda:1: each kernel's card
     test above at one shape runs there and equals its plain version, and
@@ -1020,3 +1126,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="run_cap"):
         bk.traceback(u8(4, 8), u8(4, 8), z(4), z(4), z(4), 48,
                      entry_dtype=torch.uint8)
+
+
+def test_a_capture_that_reads_back_raises(dev):
+    """A step that reads a value back to the host cannot be captured: the
+    capture raises, and nothing runs the step eagerly instead.  (Last in
+    the file: a failed capture may leave the card's capture stream
+    unusable for the rest of the process.)"""
+    from hashreadmapper_tpu_torch.pipeline import graphs
+    step = graphs.CapturedStep((torch.zeros(8, device=dev),))
+    with pytest.raises(RuntimeError):
+        step.run(lambda x: (x * int(x.sum().item() + 1),),
+                 torch.ones(8, device=dev))
+    assert step.graph is None
