@@ -67,7 +67,9 @@ Phase 9  the data x table mesh at the flagship width, a logical 2 x 4
          1 x 2 mesh); the CLI with --mesh 1 1 == the single run, byte for
          byte; two processes of 2 regions each, merged over gloo (the
          script runs itself with --region-worker), == the single-process
-         4-region mapper; a 1 x 2 mesh over two cards where there are two.
+         4-region mapper; a 1 x 2 mesh over two cards where there are two
+         (a head, a probe step a card and a tail: the split path).  A data
+         shard's batch is a graph replay on the card's own stream.
 Phase 10 the captured CUDA graphs of the batch steps (pipeline/graphs.py:
          a read batch, with its fused STEP 2, and a window batch are one
          replay each) against the same steps run eagerly, in every mode
@@ -83,6 +85,14 @@ Phase 10 the captured CUDA graphs of the batch steps (pipeline/graphs.py:
          the flagship CLI's whole run graph and eager alternated.  The
          launch counts of every phase count a replay as the launches its
          capture recorded.
+Phase 11 the logical 2 x 4 mesh's dispatch units (parallel/sharded.py: a
+         data shard's batch one replay) against the same steps eager, in
+         flagship 3N, --undirectional and parity on phase 10's reads: every
+         data shard's packed rows, overflow, score rows, traceback entries
+         and status bit for bit; coarse and coarse + STEP 2 reads/s graph
+         and eager alternated (medians of 3); host launches, device
+         launches and busy share a mesh batch under torch.profiler; the
+         captures' seconds and the card's graph pool.
 Phase 4  a chr1-sized (248,956,422 bp) window index resident on the card,
          coarse-mapping 49,152 planted reads; then the same genome in two
          window regions (per-read results equal the single mapper's), and
@@ -2270,12 +2280,19 @@ def phase9(tmp, res, reads, starts, junk):
     # distinct cards, where the machine has them
     if torch.cuda.device_count() >= 2:
         mesh2 = make_mesh(1, 2)
-        r2 = ShardedCoarseMapper(genome, opts, mesh2).map_reads(padded, lens)
+        m2 = ShardedCoarseMapper(genome, opts, mesh2)
+        r2 = m2.map_reads(padded, lens)
+        steps = sorted({k[0] for k in m2._steps})
+        if steps != ["head", "probe", "tail"]:
+            raise AssertionError(f"phase9 1x2 mesh over two cards ran the "
+                                 f"steps {steps}, not the split path")
         same_results("phase9 1x2 mesh over two cards == the logical mesh",
                      r2, ShardedCoarseMapper(genome, opts, make_mesh(
                          1, 2, ["cuda:0"] * 2)).map_reads(padded, lens))
-        log(f"phase9 1x2 mesh over {mesh2.devices[0]}: identical to the "
-            f"logical 1x2 mesh on cuda:0")
+        log(f"phase9 1x2 mesh over {mesh2.devices[0]}, split at the cards "
+            f"({len(m2._steps)} steps: {steps}): identical to the logical "
+            f"1x2 mesh on cuda:0")
+        del m2
     else:
         log(f"phase9 1x2 mesh over distinct cards: skipped, "
             f"{torch.cuda.device_count()} card on this machine")
@@ -2485,6 +2502,88 @@ def phase10(tmp):
     return out
 
 
+def mesh_graph_equals_eager(label, mapper, padded, lens):
+    """The mesh's _map_reads_device_scored, a replay a data shard's batch,
+    against the eager step (_map_shard_batch) of every data shard's batch:
+    packed rows, overflow, score rows, traceback entries and status, bit
+    for bit.  Returns the batches compared."""
+    mapper.ensure_read_drops(padded, lens)
+    mapper.ensure_empty_drops()
+    staged = mapper.stage_reads_device(padded, lens)
+    bases, ln, valid, _ = staged
+    graph = mapper._map_reads_device_scored(*staged, mapper.opts.batchsize)
+    d_n = len(bases)
+    eager = [mapper._map_shard_batch(d, bases[d][i], ln[d][i], valid[d][i],
+                                     with_scores=True)
+             for i in range(bases[0].shape[0]) for d in range(d_n)]
+    want = (torch.cat([e[0] for e in eager]),
+            torch.stack([e[1] for e in eager]).sum(dim=0),
+            torch.cat([e[2] for e in eager], dim=1),
+            torch.cat([e[3] for e in eager]),
+            torch.cat([e[4] for e in eager]))
+    for name, g, e in zip(STEP_OUTPUTS, graph, want):
+        if g.dtype != e.dtype or not torch.equal(g, e):
+            raise AssertionError(f"phase11 {label}: {name} graph != eager")
+    return len(eager)
+
+
+def phase11(cases):
+    """The logical 2x4 mesh's dispatch units as CUDA graphs (a replay a
+    data shard's batch on the card's own stream) against the same steps
+    eager, in the modes of phase 10's single mappers (flagship 3N,
+    --undirectional, parity; their genomes, options and reads): bit for
+    bit; coarse and coarse + STEP 2 reads/s of both, alternated, medians
+    of 3; host launches, device launches and busy share a mesh batch of
+    each under torch.profiler; the steps' capture seconds and the card's
+    graph pool."""
+    from hashreadmapper_tpu_torch.parallel.sharded import (
+        ShardedCoarseMapper, make_mesh)
+    from hashreadmapper_tpu_torch.pipeline import graphs
+    d_n, t_n = MESH
+    out = {}
+    for label, genome, opts, padded, lens in cases:
+        n = len(lens)
+        mapper = ShardedCoarseMapper(
+            genome, opts, make_mesh(d_n, t_n, ["cuda:0"] * d_n * t_n))
+        batches = mesh_graph_equals_eager(label, mapper, padded, lens)
+        log(f"phase11 {d_n}x{t_n} mesh {label}: graph == eager, bit for bit, "
+            f"over {batches} data shards' batches: {', '.join(STEP_OUTPUTS)}")
+        rec = {}
+        for what, kw in (("coarse", {}), ("coarse + STEP 2",
+                                          {"with_scores": True})):
+            run = lambda: mapper.map_reads(padded, lens, **kw)
+            run()
+            times = timed_alternately({"graph": run, "eager": run})
+            rate = {side: n / statistics.median(t)
+                    for side, t in times.items()}
+            rec[what] = rate
+            log(f"phase11 {d_n}x{t_n} mesh {label} {what}: graph "
+                f"{rate['graph']:.1f} reads/s, eager {rate['eager']:.1f} "
+                f"(medians of 3, alternated: "
+                f"{ {k: [round(x, 6) for x in v] for k, v in times.items()} }"
+                f" s), {rate['graph'] / rate['eager']:.4f}x")
+        n_batches = -(-n // (opts.batchsize * d_n))
+        for side in ("graph", "eager"):
+            with (eager_steps() if side == "eager"
+                  else contextlib.nullcontext()):
+                rec[side] = profiled(
+                    f"phase11 {d_n}x{t_n} mesh {label} {side}",
+                    lambda: mapper.map_reads(padded, lens, with_scores=True),
+                    f"map_reads(with_scores=True) of {n} reads", n_batches,
+                    f"{opts.batchsize * d_n}-read mesh batch")
+        rec["capture_s"] = [round(st.capture_seconds, 4)
+                            for st in mapper._steps.values()]
+        rec["pool_bytes"] = graphs.pool_bytes("cuda")
+        log(f"phase11 {d_n}x{t_n} mesh {label}: {len(rec['capture_s'])} steps "
+            f"captured (a data shard's batch coarse and with STEP 2, each "
+            f"shared by the rows of the one card), warm-up and capture "
+            f"{rec['capture_s']} s; the card's graph pool now "
+            f"{rec['pool_bytes']} B")
+        out[label] = rec
+        del mapper
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2507,7 +2606,13 @@ def main():
         launches_reg, per_batch_reg = phase8(tmp, res, reads)
         launches_mesh, per_batch_mesh, _ = phase9(tmp, res, reads, starts,
                                                   junk)
+        # phase 11's cases: the single mappers' genomes, options and reads
+        mesh_cases = [(label, m.genome, m.opts, padded, lens)
+                      for label, m, padded, lens, _, _ in GRAPH_CASES
+                      if label in ("flagship 3N", "--undirectional", "parity")]
         graph_rec = phase10(tmp)
+        graph_rec["mesh"] = phase11(mesh_cases)
+        del mesh_cases
     del res
     chr1 = phase4()
     phase8_chr1(chr1)

@@ -12,9 +12,10 @@ global window ordinal): an associative, deterministic merge, so the
 results do not depend on the region count and equal the single mapper's
 wherever no cap or budget drops candidates differently in a region than
 in the whole genome.  Regions are placed round robin over a list of torch
-devices (one card by default) and run one after another; or, given a
-mesh, every region's tables are sharded over the same data x table mesh
-(one ShardedCoarseMapper a region, parallel/sharded.py).
+devices (one card by default); or, given a mesh, every region's tables
+are sharded over the same data x table mesh (one ShardedCoarseMapper a
+region, parallel/sharded.py).  Either way every region's batches are
+enqueued before the first copy to the host.
 """
 
 from __future__ import annotations
@@ -181,15 +182,12 @@ class RegionShardedMapper:
                      with_scores: bool):
         """Every region's (packed, overflow, bundle) on the host, as
         CoarseMapper.map_reads_packed returns them.  The reads are staged
-        once a device and every region's batches enqueued (a graph replay
-        a batch on a card) before the first copy to the host (the JAX
-        package's region_sharded.py:219-225).  Regions over a mesh map one
-        after another."""
+        once a device (once for the mesh) and every region's batches
+        enqueued (a graph replay a batch, or a data shard's batch, on a
+        card) before the first copy to the host (the JAX package's
+        region_sharded.py:207-227)."""
         for mapper in self.mappers:
             mapper.ensure_empty_drops()
-        if self.mesh is not None:
-            return [m.map_reads_packed(read_bases, read_lengths, with_scores)
-                    for m in self.mappers]
         n, bsz = len(read_lengths), self.opts.batchsize
         pool_n = min(m.read_pool_size(n, bsz) for m in self.mappers) \
             if n else 0

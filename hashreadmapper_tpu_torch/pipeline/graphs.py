@@ -29,7 +29,10 @@ Contract:
     caller copies a replay's outputs out before any other graph of the
     pool replays, and keeps no static output past its step's life (the
     allocator frees a pool whose graphs are gone only when none of its
-    blocks is held, and refuses a capture into it before that).
+    blocks is held, and refuses a capture into it before that).  A
+    replay goes on the current stream: the single mapper's on the
+    caller's, a mesh's on stream(card), the card's own stream, which
+    it orders after the caller's stream and the caller's after it.
   * State the step reads from outside its inputs (the index, the key
     drops, the staged genome) is created before the capture, outside
     the pool, and must not be replaced after it: the owners key or drop
@@ -133,16 +136,25 @@ def _on(device: torch.device):
     return torch.cuda.device(device)
 
 
-class CapturedStep:
-    """A batch step over static input buffers shaped like `like`: captured
-    once and replayed on a CUDA device, run eagerly on the CPU (see the
-    module docstring).  run() takes the step function each time and uses
-    it only to capture or to run eagerly, so a step does not hold its
-    owner (a mapper and its device memory) alive."""
+def stream(device) -> torch.cuda.Stream:
+    """The card's own stream (its captures' stream): a mesh puts every
+    replay and copy of the card on it, in order."""
+    return _card(_cuda_device(device)).stream
 
-    def __init__(self, like: Sequence[torch.Tensor]):
-        self.inputs = tuple(torch.empty(t.shape, dtype=t.dtype,
-                                        device=t.device) for t in like)
+
+class CapturedStep:
+    """A batch step over static input buffers shaped like `like` (on
+    `device`, else on like's devices): captured once and replayed on a
+    CUDA device, run eagerly on the CPU (see the module docstring).
+    run() takes the step function each time and uses it only to capture
+    or to run eagerly, so a step does not hold its owner (a mapper and
+    its device memory) alive.  An argument that is the static input
+    itself (a caller that wrote into `inputs`) is not copied."""
+
+    def __init__(self, like: Sequence[torch.Tensor], device=None):
+        self.inputs = tuple(torch.empty(
+            t.shape, dtype=t.dtype,
+            device=t.device if device is None else device) for t in like)
         self.device = self.inputs[0].device
         self.outputs = None
         self.graph = None
@@ -160,7 +172,8 @@ class CapturedStep:
                     f"step input {tuple(x.shape)} {x.dtype} on {x.device}; "
                     f"the static buffer is {tuple(buf.shape)} {buf.dtype} "
                     f"on {buf.device}")
-            buf.copy_(x)
+            if x is not buf:
+                buf.copy_(x)
 
     def run_eager(self, step: Step, *args) -> Tuple[torch.Tensor, ...]:
         """The step, eagerly, on the static inputs; its results copied into

@@ -12,10 +12,16 @@ all from a seed.
 
   * For the meshes 1 x N, N x 1 and, with four cards or more, 2 x N/2:
     the mesh over N distinct cards against the same mesh with every
-    position on cuda:0 (identical rows and counters, by launches on each
-    card and peer copies back), with the index bytes per card, the build
-    seconds and coarse and coarse + STEP 2 reads/s (medians of 3) of
-    both, beside the single mapper on cuda:0.
+    position on cuda:0 (identical rows and counters), with the index
+    bytes per card, the build seconds and coarse and coarse + STEP 2
+    reads/s of both, beside the single mapper on cuda:0.  Each rate is
+    taken with the batch steps as CUDA graph replays (over distinct cards
+    a data shard's batch is a head, a probe step a card and a tail, each
+    card's replays and copies on its own stream) and eager, the two
+    alternated in one process, medians of 3; and, on the cards, one
+    graph run under torch.profiler: the host's launches a mesh batch
+    (kernel and graph launches, copies, fills) and each card's busy share
+    of the call.
   * N processes, one a card, each mapping the reads against one region of
     an N-region window partition and merging over NCCL
     (parallel/multihost.py): the merged keys and payloads equal the
@@ -28,7 +34,9 @@ the merge over gloo in N processes).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
+import re
 import socket
 import statistics
 import subprocess
@@ -77,20 +85,69 @@ def sync():
             torch.cuda.synchronize(i)
 
 
+@contextlib.contextmanager
+def eager_steps():
+    """Every batch step eager (CapturedStep.run_eager in place of the
+    graph's replay)."""
+    from ..pipeline import graphs
+    run = graphs.CapturedStep.run
+    graphs.CapturedStep.run = graphs.CapturedStep.run_eager
+    try:
+        yield
+    finally:
+        graphs.CapturedStep.run = run
+
+
 def rates(mapper, padded, lens):
-    """(coarse reads/s, coarse + STEP 2 reads/s), medians of 3 after one
-    warm-up call."""
-    out = []
+    """{"graph" | "eager": [coarse reads/s, coarse + STEP 2 reads/s]}:
+    medians of 3 after a warm-up call of each, the two sides alternated
+    (eager, graph, graph, eager, eager, graph)."""
+    out = {"graph": [], "eager": []}
     for scores in (False, True):
-        mapper.map_reads(padded, lens, with_scores=scores)
-        times = []
-        for _ in range(3):
-            sync()
-            t0 = time.perf_counter()
-            mapper.map_reads(padded, lens, with_scores=scores)
-            times.append(time.perf_counter() - t0)
-        out.append(len(lens) / statistics.median(times))
+        run = lambda: mapper.map_reads(padded, lens, with_scores=scores)
+        run()
+        with eager_steps():
+            run()
+        times = {"graph": [], "eager": []}
+        for side in ("eager", "graph", "graph", "eager", "eager", "graph"):
+            with (eager_steps() if side == "eager"
+                  else contextlib.nullcontext()):
+                sync()
+                t0 = time.perf_counter()
+                run()
+                times[side].append(time.perf_counter() - t0)
+        for side, t in times.items():
+            out[side].append(round(len(lens) / statistics.median(t), 1))
     return out
+
+
+# the host's calls that put work on a card's queue (runtime and driver
+# API names)
+HOST_LAUNCH = re.compile(r"^cu(da)?(LaunchKernel|GraphLaunch|Memcpy|Memset)")
+
+
+def profiled(mapper, padded, lens, n_batches):
+    """One map_reads(with_scores=True) under torch.profiler: (host
+    launches a batch, {card: busy share of the call}, wall seconds)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mapper.map_reads(padded, lens, with_scores=True)
+        sync()
+        wall = time.perf_counter() - t0
+    host, busy = 0, {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy[e.device_index] = (busy.get(e.device_index, 0)
+                                    + e.time_range.elapsed_us())
+        elif HOST_LAUNCH.match(e.name):
+            host += 1
+    return (round(host / n_batches, 1),
+            {f"cuda:{i}": round(us / 1e6 / wall, 4)
+             for i, us in sorted(busy.items())}, round(wall, 6))
 
 
 def same(label, a, b):
@@ -110,9 +167,14 @@ def meshes(cards, genome, padded, lens, device):
     first = cards[0]
     single = CoarseMapper(genome, opts, first)
     ref = single.map_reads(padded, lens)
-    print(f"single mapper on {first}: coarse, coarse + STEP 2 "
-          f"{[round(r, 1) for r in rates(single, padded, lens)]} reads/s; "
-          f"stats {ref.stats}", flush=True)
+    print(f"single mapper on {first}: coarse, coarse + STEP 2 reads/s "
+          f"{rates(single, padded, lens)}; stats {ref.stats}", flush=True)
+    if device == "cuda":
+        n_batches = -(-len(lens) // opts.batchsize)
+        print(f"single mapper on {first}, graph, under torch.profiler: "
+              f"(host launches a {opts.batchsize}-read batch, busy share "
+              f"by card, wall s) {profiled(single, padded, lens, n_batches)}",
+              flush=True)
     del single
     shapes = [(1, n), (n, 1)] + ([(2, n // 2)] if n >= 4 else [])
     for d, t in shapes:
@@ -128,9 +190,15 @@ def meshes(cards, genome, padded, lens, device):
             got[label] = mapper.map_reads(padded, lens)
             print(f"{d}x{t} mesh, {label}: built in {build:.3f} s, index "
                   f"bytes per device {mapper.index_memory_per_device()}; "
-                  f"coarse, coarse + STEP 2 "
-                  f"{[round(r, 1) for r in rates(mapper, padded, lens)]} "
-                  f"reads/s; stats {got[label].stats}", flush=True)
+                  f"steps {sorted({k[0] for k in mapper._steps})}; coarse, "
+                  f"coarse + STEP 2 reads/s {rates(mapper, padded, lens)}; "
+                  f"stats {got[label].stats}", flush=True)
+            if device == "cuda" and label == "distinct":
+                batch = opts.batchsize * d
+                prof = profiled(mapper, padded, lens, -(-len(lens) // batch))
+                print(f"{d}x{t} mesh, {label}, graph, under torch.profiler: "
+                      f"(host launches a {batch}-read mesh batch, busy share "
+                      f"by card, wall s) {prof}", flush=True)
             del mapper
         same(f"{d}x{t} mesh over distinct devices", *got.values())
         print(f"{d}x{t} mesh: distinct devices == all on {first}: every "
@@ -248,8 +316,11 @@ def main(argv):
                   file=sys.stderr)
             return 1
         cards = [torch.device("cuda", i) for i in range(n)]
-        print(f"cards: {[torch.cuda.get_device_name(i) for i in range(n)]}",
-              flush=True)
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True)
+        print(f"cards: {[torch.cuda.get_device_name(i) for i in range(n)]}; "
+              f"nvidia-smi: {smi.stdout.strip().splitlines()}", flush=True)
     else:
         cards = [torch.device("cpu")] * max(2, args.cards)
     genome, padded, lens = dataset(args.genome, args.reads)

@@ -560,6 +560,56 @@ def test_graph_steps_equal_eager(dev, mode):
     assert (eager[0][:, 0] != 3).float().mean() > 0.4
 
 
+def _mesh_eager_pool(mapper, staged):
+    """The eager step (_map_shard_batch) of every data shard's batch of a
+    staged mesh pool, in read order: the outputs of
+    _map_reads_device_scored without a graph."""
+    bases, lens, valid, _ = staged
+    parts = [mapper._map_shard_batch(d, bases[d][i], lens[d][i], valid[d][i],
+                                     with_scores=True)
+             for i in range(bases[0].shape[0]) for d in range(len(bases))]
+    return [torch.cat([p[0] for p in parts]),
+            torch.stack([p[1] for p in parts]).sum(dim=0),
+            torch.cat([p[2] for p in parts], dim=1),
+            torch.cat([p[3] for p in parts]), torch.cat([p[4] for p in parts])]
+
+
+@pytest.mark.parametrize("mode", ["parity", "threeN", "undirectional"])
+def test_mesh_graph_steps_equal_eager(dev, mode):
+    """A logical 2 x 4 mesh on the card, each data shard's batch one replay
+    (the whole-row step), and the same mesh split at the cards (a head, a
+    probe step a table shard, a tail: three kinds of graph in the card's
+    pool): packed rows, overflow, score rows, traceback entries and status
+    equal the eager step's, bit for bit; a second run replays every step
+    and adds the captures' launch counts, one signature stage a data
+    shard's batch (two under --undirectional)."""
+    from hashreadmapper_tpu_torch.parallel.sharded import (
+        ShardedCoarseMapper, make_mesh)
+    genome, reads, lengths, _ = _four_strand_case(
+        conv=0.0 if mode == "parity" else 0.9)
+    opts = _small_case_opts(mode, batchsize=64)
+    mesh = make_mesh(2, 4, [dev] * 8)
+    per = 2 if mode == "undirectional" else 1
+    for plan in (None, [[(dev, (t,)) for t in range(4)]] * 2):
+        m = ShardedCoarseMapper(genome, opts, mesh, plan=plan)
+        m.ensure_read_drops(reads, lengths)
+        m.ensure_empty_drops()
+        staged = m.stage_reads_device(reads, lengths)
+        eager = _mesh_eager_pool(m, staged)
+        m._map_reads_device_scored(*staged, opts.batchsize)
+        before = mk.signature_stage.launches
+        graph = m._map_reads_device_scored(*staged, opts.batchsize)
+        torch.cuda.synchronize()
+        assert all(s.graph is not None for s in m._steps.values())
+        assert {k[0] for k in m._steps} == (
+            {"row"} if plan is None else {"head", "probe", "tail"})
+        assert mk.signature_stage.launches - before == \
+            per * staged[0][0].shape[0] * 2
+        for g, e in zip(graph, eager):
+            assert g.dtype == e.dtype and torch.equal(g, e)
+        assert (eager[0][:, 0] != 3).float().mean() > 0.4
+
+
 def test_two_regions_on_one_card_graph_equals_eager(dev, monkeypatch):
     """Two window regions on the card, every region's batches enqueued
     (one replay each, one graph pool for the card) before the first copy
@@ -622,7 +672,8 @@ def test_kernels_launch_on_the_card_of_their_inputs(dev, monkeypatch):
     """cuda:0 current, every kernel's inputs on cuda:1: each kernel's card
     test above at one shape runs there and equals its plain version, and
     the current device is still cuda:0; then a 1 x 2 mesh over both cards
-    (peer copies of the table shards' lists) equals the CPU's."""
+    (a graph a step on each card's own stream, peer copies of the table
+    shards' lists between them) equals the CPU's."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA cards")
     other = torch.device("cuda", 1)
@@ -648,9 +699,12 @@ def test_kernels_launch_on_the_card_of_their_inputs(dev, monkeypatch):
             ShardedCoarseMapper, make_mesh)
         genome, reads, lengths, _ = _four_strand_case()
         opts = _small_case_opts("threeN")
-        outs = [ShardedCoarseMapper(genome, opts, make_mesh(1, 2, devs))
-                .map_reads(reads, lengths, with_scores=True)
-                for devs in (None, ["cpu"] * 2)]
+        mappers = [ShardedCoarseMapper(genome, opts, make_mesh(1, 2, devs))
+                   for devs in (None, ["cpu"] * 2)]
+        outs = [m.map_reads(reads, lengths, with_scores=True)
+                for m in mappers]
+    # over two cards the row is split: a head, a probe step a card, a tail
+    assert {k[0] for k in mappers[0]._steps} == {"head", "probe", "tail"}
     (rc_, bc), (rh, bh) = outs
     for f in RESULT_FIELDS:
         np.testing.assert_array_equal(getattr(rc_, f), getattr(rh, f), f)
