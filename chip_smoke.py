@@ -4,14 +4,19 @@
 
 Phase 0  card, torch and CUDA versions; builds the native host library
          and the kernels through the port's _build.
-Phase 1  each of the thirteen CUDA kernels (the eight counterparts of the
-         TPU kernels; the fused traceback, which runs the fill's passes and
-         the walk in one launch; the forward and the reverse score pass,
-         which take the pairs as the engine has them and do the striped
-         layout, the flip and shifts and the second-best search around
-         the column pass in the same launch; the coarse mapper's SHD
-         stage, read planes to orientation, in one launch; its signature
-         stage, raw bases to masked signatures, in one launch) against its
+Phase 1  each of the seventeen CUDA kernels (the eight counterparts of
+         the TPU kernels; the fused traceback, which runs the fill's passes
+         and the walk in one launch; the forward and the reverse score
+         pass, which take the pairs as the engine has them and do the
+         striped layout, the flip and shifts and the second-best search
+         around the column pass in the same launch; the coarse mapper's
+         SHD stage, read planes to orientation, in one launch; its
+         signature stage, raw bases to masked signatures, in one launch;
+         the probe's lookup and gather, and the pair stage's selection and
+         per-read best, which replace the JAX engine's XLA-fused
+         probe_tables and coarse_pairs_best: the flagship's cuckoo probe
+         with budgets, chr1's caps, the window stream's parity read index,
+         --undirectional's pairs) against its
          plain PyTorch version at the main path's shapes (integers:
          exact), the score passes on short indel pairs and on
          flagship-like pairs, the vote also on the shared-memory side of
@@ -27,7 +32,7 @@ Phase 1  each of the thirteen CUDA kernels (the eight counterparts of the
          minimum of shd_hamming_matrix against shd_best.
 Phase 2  the flagship 3N run through the port's CLI on an 8 Mbp genome and
          49,152 bisulfite reads, STEP 2 on the card: SAM/VCF checks,
-         planted-read mapping and concordance, the seven launch counts of
+         planted-read mapping and concordance, the eleven launch counts of
          the path; then the same run with STEP 2 on staged pairs and with
          host STEP 2 (byte-identical SAM and VCF), the STEP-2 pair counts,
          launches per batch, and every device launch of one
@@ -94,7 +99,8 @@ Phase 11 the logical 2 x 4 mesh's dispatch units (parallel/sharded.py: a
          launches and busy share a mesh batch under torch.profiler; the
          captures' seconds and the card's graph pool.
 Phase 4  a chr1-sized (248,956,422 bp) window index resident on the card,
-         coarse-mapping 49,152 planted reads; then the same genome in two
+         coarse-mapping 49,152 planted reads (every device launch of one
+         map_reads under torch.profiler); then the same genome in two
          window regions (per-read results equal the single mapper's), and
          streamed through the window stream's index of 1,048,576 planted
          reads (phase 7 at chr1 scale).
@@ -142,6 +148,7 @@ N_READS, READ_LEN = 49_152, 100
 N_PARITY = 16_384
 OVERFLOW_KEYS = ("probe_overflow", "vote_overflow", "pair_budget_overflow",
                  "probe_tail_overflow", "probe_head_overflow")
+SENTINEL = 0xFFFFFFFF
 CHR1_LEN = 248_956_422          # GRCh38 chr1
 MESH = (2, 4)                   # phase 9's logical data x table mesh
 # The card's peaks, for bound_ms: device memory 3.35 TB/s (H100 SXM data
@@ -537,6 +544,7 @@ def phase1():
     cases.extend(step2_cases(rng, dev))
     cases.append(shd_stage_case(dev))
     cases.extend(minhash_stage_cases(dev))
+    cases.extend(probe_pair_cases(dev))
     records = {}
     for case in cases:
         name, shape = case["name"], case["shape"]
@@ -686,6 +694,165 @@ def shd_stage_case(dev):
         plain=lambda: shd.shd_pairs_best_plain(*args(card), three_n=True),
         bound=lambda out: (moved + nbytes(*out),
                            ops(2 * shifts_run * wr, OPS_PER_SHD_WORD)))
+
+
+def probe_pair_cases(dev):
+    """The probe's two kernels (ops/probe_kernel.py) and the pair stage's
+    two (ops/pairs_kernel.py) at the main path's shapes, each against its
+    plain version on the same card tensors: a flagship mapper's index over
+    a random 8 Mbp genome (32 tables, cuckoo) probed with 4,096 planted
+    reads' signatures, (a) as the flagship probes it (cuckoo, probe cap
+    16, tail 4 and head 18 a read), (b) at phase 4's chr1 caps (the
+    bucketed search, probe cap 128, no budgets); (c) the window stream's
+    read-index probe in parity mode (a read index of 49,152 unconverted
+    reads, 16 tables, the bucketed search with max_values_per_key, 4,096
+    windows' signatures); the pair stage on the flagship's voted ids and,
+    (d), on --undirectional's (4,096 four-strand reads, both query spaces
+    probed, 64 lists voted), SHD between.  Bounds count bytes: the inputs
+    and outputs once, and a 32-byte sector for each key, payload and value
+    the lookups and gathers need (two for each window a slot or a read's
+    best looks up)."""
+    from hashreadmapper_tpu_torch import cli
+    from hashreadmapper_tpu_torch.index import minhash_index as mi
+    from hashreadmapper_tpu_torch.io.genome import Genome
+    from hashreadmapper_tpu_torch.ops import minhash, shd
+    from hashreadmapper_tpu_torch.ops import pairs_kernel as pk
+    from hashreadmapper_tpu_torch.ops import probe_kernel as prk
+    from hashreadmapper_tpu_torch.pipeline.engine import CoarseMapper
+    from hashreadmapper_tpu_torch.pipeline.window_stream import \
+        WindowStreamMapper
+    rng = np.random.default_rng(16)
+    chrom = rng.integers(0, 4, size=GENOME_LEN, dtype=np.int8)
+    genome = Genome(["chrP"], [ACGT[chrom].tobytes().decode()])
+    opts, _ = cli.options_from_args(FLAGSHIP)
+    mapper = CoarseMapper(genome, opts, dev)
+    mapper.ensure_empty_drops()
+    idx, table = mapper.index, mapper.table
+    n, k = opts.batchsize, opts.kmer_length
+
+    def batch(reads):
+        rows = np.zeros((n, 128), np.int8)
+        rows[:, :READ_LEN] = reads
+        return (torch.from_numpy(rows).to(dev),
+                torch.full((n,), READ_LEN, dtype=torch.int32, device=dev))
+    bases, lens = batch(planted_reads(rng, chrom, n, READ_LEN)[0])
+    sigs, valid = minhash.signatures_3n_pair(bases, lens, k,
+                                             mapper._hash_ids_dev)
+    cuckoo = dict(cuckoo=(idx.cuckoo_keys, idx.cuckoo_payload),
+                  cuckoo_bits=idx.cuckoo_bits, cuckoo_seeds=idx.cuckoo_seeds)
+    bucketed = dict(bucket_start=idx.bucket_start,
+                    probe_steps=idx.probe_steps)
+    ws_opts, _ = cli.options_from_args([f for f in FLAGSHIP
+                                        if f != "--threeN"])
+    ws_reads = unconverted_reads(rng, chrom, N_READS, READ_LEN)[0]
+    ws = WindowStreamMapper(ws_reads, np.full(N_READS, READ_LEN, np.int32),
+                            ws_opts, dev)
+    starts = rng.integers(0, GENOME_LEN - 128, size=n)
+    win = torch.from_numpy(chrom[starts[:, None] + np.arange(128)]).to(dev)
+    ws_sigs, ws_valid = minhash.minhash_signatures(
+        win, torch.full((n,), 128, dtype=torch.int32, device=dev), k,
+        ws._hash_ids_dev)
+    wi = ws.index
+    mvpk = ws_opts.max_results_per_map
+    lookups = (
+        ("flagship: cuckoo, probe cap 16, tail 4 / head 18 a read",
+         (sigs, valid, idx), 16, 4, dict(dropped_keys=mapper.dropped,
+                                         **cuckoo), (4 * n, 18 * n), 3),
+        ("chr1 caps on the flagship index: bucketed, probe cap 128, no "
+         "budgets", (sigs, valid, idx), 128, 128,
+         dict(dropped_keys=mapper.dropped, **bucketed), (0, 0),
+         idx.probe_steps + 3),
+        (f"window stream, parity read index of {N_READS} reads: bucketed, "
+         f"max_values_per_key {mvpk}, probe cap 16, tail 4 / head 18",
+         (ws_sigs, ws_valid, wi), 16, 4,
+         dict(bucket_start=wi.bucket_start, probe_steps=wi.probe_steps,
+              max_values_per_key=mvpk), (4 * n, 18 * n),
+         wi.probe_steps + 3))
+    cases = []
+    probes = {}
+    for label, (q, qv, ix), cap, c1, kw, budgets, sectors in lookups:
+        largs = (q, qv, ix.keys, ix.offsets, ix.num_keys, cap, c1)
+        lk = prk.probe_lookup(*largs, **kw)
+        gargs = (*lk, ix.values, cap, c1, *budgets)
+        probes[label] = prk.probe_gather(*gargs)
+        f_t = ix.num_tables
+        extra = nbytes(*[t for t in (kw.get("dropped_keys") or ())])
+        cases.append(dict(
+            key="probe_lookup", name="probe_lookup",
+            shape=f"F={f_t} N={n}, {label}",
+            kernel=lambda a=largs, kw=kw: prk.probe_lookup(*a, **kw),
+            plain=lambda a=largs, kw=kw: prk.probe_lookup_plain(*a, **kw),
+            bound=lambda out, q=q, qv=qv, sec=sectors, f_t=f_t, e=extra: (
+                nbytes(q, qv, *out) + e + 32 * sec * f_t * n,
+                ops(0))))
+        cand = probes[label][0]
+        # the values a probe's rows need: 4 int64 a sector
+        runs = (cand != SENTINEL).sum(dim=2)
+        value_sectors = int(((runs + 3) // 4).sum())
+        cases.append(dict(
+            key="probe_gather", name="probe_gather",
+            shape=f"F={f_t} N={n} C={cap}, {label}",
+            kernel=lambda a=gargs: prk.probe_gather(*a),
+            plain=lambda a=gargs: prk.probe_gather_plain(*a),
+            bound=lambda out, a=gargs, vs=value_sectors: (
+                nbytes(*a[:3], *out) + 32 * vs, ops(0))))
+
+    # the pair stage on the voted ids: flagship, then --undirectional
+    flag = "flagship: cuckoo, probe cap 16, tail 4 / head 18 a read"
+    und_opts, _ = cli.options_from_args(FLAGSHIP + ["--undirectional"])
+    ub, ul = batch(four_strand_reads(rng, chrom, n, READ_LEN)[0])
+    us, uv = minhash.signatures_3n_pair(ub, ul, k, mapper._hash_ids_dev)
+    us_m, _ = minhash.signatures_3n_pair(ub, ul, k, mapper._hash_ids_dev,
+                                         mirror=True)
+    budget_kw = dict(tail_budget=4 * n, head_budget=18 * n,
+                     dropped_keys=mapper.dropped, **cuckoo)
+    und = [mi.probe_tables_stats(idx.keys, idx.offsets, idx.values,
+                                 idx.num_keys, s, uv, 16, **budget_kw)
+           for s in (us, us_m)]
+    kcap = opts.candidates_per_read_cap
+    params = shd.ShdParams(opts.window_size, opts.window_size + 128, 128,
+                           opts.max_hamming_percent)
+    pair_inputs = (
+        ("flagship 3N", opts, bases, lens, probes[flag][0],
+         probes[flag][1][None]),
+        ("--undirectional", und_opts, ub, ul,
+         torch.cat([und[0][0], und[1][0]]),
+         torch.stack([und[0][2], und[1][2]])))
+    for label, o, rb, rl, cand, stats in pair_inputs:
+        ids, _, num_kept = mi.vote_candidates_fnc_auto(
+            cand, o.min_table_hits, kcap)
+        sargs = (ids, rl, table.win_pos, table.win_chrom, table.chrom_offset,
+                 table.chrom_len, o.window_size, o.shd_pairs_per_read_budget)
+        sel = pk.pair_select(*sargs)
+        p = sel[0].shape[0]
+        res = [shd.shd_pairs_best(rb, rl, sel[1], table.genome_hi,
+                                  table.genome_lo, sel[2], sel[3], sel[4],
+                                  sel[5], params, three_n=True,
+                                  undirectional=u)
+               for u in ((False, True) if o.undirectional else (False,))]
+        bargs = (res[0], res[1] if o.undirectional else None, sel[0],
+                 sel[5], ids, table.win_pos, table.win_chrom, stats,
+                 num_kept, sel[6])
+        n_valid = int(sel[5].sum())
+        cases.append(dict(
+            key="pair_select", name="pair_select",
+            shape=f"B={n} K={kcap} budget {o.shd_pairs_per_read_budget}: "
+                  f"{p} slots, {n_valid} valid, {label}",
+            kernel=lambda a=sargs: pk.pair_select(*a),
+            plain=lambda a=sargs: pk.pair_select_plain(*a),
+            bound=lambda out, ids=ids, rl=rl, p=p: (
+                nbytes(ids, rl, *out) + 64 * p, ops(0))))
+        shd_out = [t for r in res for t in r]
+        cases.append(dict(
+            key="read_best", name="read_best",
+            shape=f"B={n} K={kcap}, {p} slots, {len(res)} SHD result(s), "
+                  f"{label}",
+            kernel=lambda a=bargs: pk.read_best(*a),
+            plain=lambda a=bargs: pk.read_best_plain(*a),
+            bound=lambda out, a=bargs, so=shd_out: (
+                nbytes(*so, a[2], a[3], a[4], a[7], a[8], a[9], *out)
+                + 64 * n, ops(0))))
+    return cases
 
 
 def minhash_stage_cases(dev):
@@ -1124,30 +1291,38 @@ def write_dataset(tmp, rng):
 
 
 def kernel_wrappers():
-    """The wrappers of the seven kernels on the CLI's path, by the names
+    """The wrappers of the eleven kernels on the CLI's path, by the names
     of the kernels JSON.  The fill's launch on that path is the fused
     traceback (all passes and the walk in one), the striped pass's the
     forward and the reverse score pass (the column pass with what stands
     around it in one launch each).  The SHD and signature stages are
     their fused entries, shd_kernel.shd_pairs_best and
     minhash_kernel.signature_stage: the direct shd_best and
-    sigs_from_bases have no caller there."""
+    sigs_from_bases have no caller there.  The probe is two launches
+    (probe_lookup, probe_gather), the pair stage two around the SHD
+    (pair_select, read_best)."""
     from hashreadmapper_tpu_torch.ops.bandtb_kernel import shift_sub, traceback
     from hashreadmapper_tpu_torch.ops.minhash_kernel import signature_stage
+    from hashreadmapper_tpu_torch.ops.pairs_kernel import (pair_select,
+                                                           read_best)
+    from hashreadmapper_tpu_torch.ops.probe_kernel import (probe_gather,
+                                                           probe_lookup)
     from hashreadmapper_tpu_torch.ops.shd_kernel import shd_pairs_best
     from hashreadmapper_tpu_torch.ops.swdev_kernel import (sw_forward,
                                                            sw_reverse)
     from hashreadmapper_tpu_torch.ops.vote_kernel import vote_candidates_fnc
-    return {"minhash_stage": signature_stage, "vote": vote_candidates_fnc,
-            "shd_pairs_best": shd_pairs_best, "sw_forward": sw_forward,
+    return {"minhash_stage": signature_stage, "probe_lookup": probe_lookup,
+            "probe_gather": probe_gather, "vote": vote_candidates_fnc,
+            "pair_select": pair_select, "shd_pairs_best": shd_pairs_best,
+            "read_best": read_best, "sw_forward": sw_forward,
             "sw_reverse": sw_reverse, "shift_sub": shift_sub,
             "traceback": traceback}
 
 
 def counted(label, fn, path_kernels=None):
-    """fn() with the seven kernels' launch counts set to 0 just before
+    """fn() with the eleven kernels' launch counts set to 0 just before
     and read just after: (result, seconds, launches).  Fails when a kernel
-    of the path (path_kernels: names of kernel_wrappers(), all seven by
+    of the path (path_kernels: names of kernel_wrappers(), all eleven by
     default) was never launched, when the path went through the
     unfused striped pass (which builds the striped read tensor and the
     per-column maxima in device memory), the direct shd_best kernel (the
@@ -1665,6 +1840,9 @@ def phase4(device="cuda"):
         f"coarse {N_READS / t_map:.1f} reads/s (median of 3: "
         f"{[round(s, 6) for s in times]} s), caps {AT_SCALE}, "
         f"overflow {r.stats}")
+    profiled("phase4 chr1-size", lambda: mapper.map_reads(padded, lens),
+             f"map_reads of {N_READS} reads", -(-N_READS // opts.batchsize),
+             f"{opts.batchsize}-read batch")
 
     # the flagship (8 Mbp) caps at this scale, for comparison only
     for flag, attr in (("--probeCap", "probe_cap"),
@@ -1688,7 +1866,9 @@ def phase4(device="cuda"):
                 results=r, overflowed=overflowed_reads(mapper, padded, lens))
 
 
-WS_KERNELS = ("minhash_stage", "vote", "shd_pairs_best")
+# the window stream's kernels (its pair stage is torch operations)
+WS_KERNELS = ("minhash_stage", "probe_lookup", "probe_gather", "vote",
+              "shd_pairs_best")
 
 
 def window_fractions(res, starts):
@@ -2655,7 +2835,17 @@ def main():
             # the 3N collapse, the k < 16 mask and SENTINEL rows (:165-171)
             # and the mirrored halves of signatures_3n_pair
             "minhash_stage": (src + "minhash.cu",
-                              ref + "minhash_pallas.py:171")}
+                              ref + "minhash_pallas.py:171"),
+            # no pallas_call behind these four: the XLA fusions of the JAX
+            # functions they replace
+            "probe_lookup": (src + "probe.cu", "hashreadmapper_tpu/index/"
+                             "minhash_index.py:372"),
+            "probe_gather": (src + "probe.cu", "hashreadmapper_tpu/index/"
+                             "minhash_index.py:372"),
+            "pair_select": (src + "pairs.cu",
+                            "hashreadmapper_tpu/pipeline/engine.py:149"),
+            "read_best": (src + "pairs.cu",
+                          "hashreadmapper_tpu/pipeline/engine.py:149")}
     from hashreadmapper_tpu_torch.ops.bandtb_kernel import fill_pass
     from hashreadmapper_tpu_torch.ops.swdev_kernel import pass_batched
     # the fill's launch on the main path is the fused traceback (one a

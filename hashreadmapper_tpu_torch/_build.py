@@ -17,7 +17,7 @@ builds each produce a whole file and no process loads a partial one.
 native.py binds it.
 
 Every entry point takes device pointers and the CUDA stream as c_void_p,
-sizes as c_int (a float32 parameter as c_float), launches on that stream
+sizes as c_int or c_longlong (a float32 parameter as c_float), launches on that stream
 without synchronising, and returns cudaGetLastError(); launch() runs it
 on the card of the tensors it is given and raises when that is not
 cudaSuccess.
@@ -50,6 +50,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # entry point -> argtypes (pointers and the stream as c_void_p, ints c_int)
 _SIGNATURES = {
     # bases, lengths, hash_ids, out, valid, n, maxlen, k, f, mode,
@@ -86,6 +87,25 @@ _SIGNATURES = {
     # bases, read_len, ridx, g_hi, g_lo, gstart, alen, aleft, valid, ham,
     # shift, ori, p, l, g_words, n_shifts, max_pct, mode, stream
     "hrm_shd_pairs_best": [_P] * 12 + [_I] * 4 + [_F, _I, _P],
+    # sigs, sig_stride, sig_valid, keys, offsets, num_keys, u, bucket_start,
+    # bucket_bits, steps, ck, cp, cuckoo_bits, seed1, seed2, dkeys, dnum,
+    # d_cols, counts, off0, tallies, f, n, mode, max_values_per_key,
+    # probe_cap, c1, nblk, stream
+    "hrm_probe_lookup": [_P, _L, _P, _P, _P, _P, _L, _P, _I, _I, _P, _P, _I,
+                         _L, _L, _P, _P, _L, _P, _P, _P, _I, _I, _I, _L, _I,
+                         _I, _I, _P],
+    # counts, off0, tallies, values, v_cols, cand, stats, f, n, probe_cap,
+    # c1, tail_budget, head_budget, nblk, stream
+    "hrm_probe_gather": [_P, _P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _L, _L,
+                         _I, _P],
+    # ids, read_len, win_pos, win_chrom, chrom_offset, chrom_len, pair_sel,
+    # ridx, gstart, length, left, valid, drops, b, k, n_win, n_chrom,
+    # window_size, budget, stream
+    "hrm_pair_select": [_P] * 13 + [_L] * 6 + [_P],
+    # ham, shift, ori, ham_u, shift_u, ori_u, pair_sel, sel_valid, ids,
+    # win_pos, win_chrom, stats, num_kept, pair_drops, packed, ori_out,
+    # overflow, p, b, k, n_win, n_stats, stream
+    "hrm_read_best": [_P] * 17 + [_L] * 5 + [_P],
 }
 
 _lock = threading.Lock()

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .. import native
-from ..ops import u64
+from ..ops import probe_kernel
 from ..ops.vote_kernel import vote_candidates_fnc
 
 SENTINEL = 0xFFFFFFFF
@@ -190,8 +190,11 @@ def build_csr_index_device(signatures: torch.Tensor, valid: torch.Tensor,
     offsets = offsets[:, :n + 1].contiguous()
     n_valid = is_real.sum(dim=1)
     offsets.scatter_(1, num_keys.clamp(max=n)[:, None], n_valid[:, None])
+    # row-major like keys and offsets (the sort keeps the transposed
+    # signatures' strides): the probe's gathers read a key's values as one
+    # run, and its kernels take the table as it is, without a copy a batch
     values = torch.where(is_real, vals_sorted,
-                         torch.full_like(vals_sorted, SENTINEL))
+                         torch.full_like(vals_sorted, SENTINEL)).contiguous()
     return CsrIndex(keys=keys[:, :n].contiguous(), offsets=offsets,
                     values=values, num_keys=num_keys,
                     kmer_length=kmer_length,
@@ -210,65 +213,19 @@ def build_probe_buckets(keys: torch.Tensor, num_keys: torch.Tensor,
     return torch.cat([starts, num_keys[:, None]], dim=1)
 
 
-def _bucketed_lower_bound(keys, bucket_start, queries, steps: int):
-    """Branchless lower_bound per (table, query) from a radix head start."""
-    bits = int(bucket_start.shape[1] - 1).bit_length() - 1
-    b = queries >> (32 - bits)
-    lo = torch.gather(bucket_start, 1, b)
-    hi = torch.gather(bucket_start, 1, b + 1)
-    for _ in range(steps):
-        active = lo < hi
-        mid = (lo + hi) >> 1
-        kmid = torch.gather(keys, 1, mid.clamp(max=keys.shape[1] - 1))
-        go_right = active & (kmid < queries)
-        lo, hi = (torch.where(go_right, mid + 1, lo),
-                  torch.where(active & ~go_right, mid, hi))
-    return lo
-
-
-def _dropped_hit(dropped_keys, sigs_t):
-    dkeys, dnum = dropped_keys
-    didx = torch.searchsorted(dkeys, sigs_t)
-    found = torch.gather(dkeys, 1, didx.clamp(max=dkeys.shape[1] - 1))
-    return (found == sigs_t) & (didx < dnum[:, None])
-
-
-def _compact_gather(flat_sel_mask, budget, off0, cap_eff, values, n, c_lo,
-                    c_hi):
-    """Gather value slots [c_lo, c_hi) of the first `budget` (f, n) probes
-    whose flat_sel_mask is set, scattered back to a dense [F, N, c_hi-c_lo]
-    block (SENTINEL elsewhere).  Returns (block, dropped probe count)."""
-    f, v_cols = values.shape
-    dev = values.device
-    fn = flat_sel_mask.shape[0]
-    rank = torch.cumsum(flat_sel_mask.to(torch.int64), dim=0) - 1
-    n_sel = flat_sel_mask.sum()
-    slot = torch.where(flat_sel_mask & (rank < budget), rank,
-                       torch.full_like(rank, budget))
-    sel = torch.zeros(budget + 1, dtype=torch.int64, device=dev).scatter_(
-        0, slot, torch.arange(fn, device=dev))[:budget]
-    sel_valid = torch.arange(budget, device=dev) < n_sel
-    cols = torch.arange(c_lo, c_hi, device=dev)[None, :]
-    g = (sel // n)[:, None] * v_cols + off0.reshape(-1)[sel][:, None] + cols
-    inside = (cols < cap_eff.reshape(-1)[sel][:, None]) & sel_valid[:, None]
-    v = values.reshape(-1)[g.clamp(0, f * v_cols - 1)]
-    v = torch.where(inside, v, torch.full_like(v, SENTINEL))
-    block = torch.full((fn + 1, c_hi - c_lo), SENTINEL, dtype=torch.int64,
-                       device=dev)
-    block[torch.where(sel_valid, sel, torch.full_like(sel, fn))] = v
-    return (block[:fn].reshape(f, n, c_hi - c_lo),
-            (n_sel - budget).clamp(min=0))
-
-
-def probe_tables(index_keys, index_offsets, index_values, index_num_keys,
-                 sigs, sig_valid, probe_cap: int, dropped_keys=None,
-                 bucket_start=None, probe_steps: int = 0,
-                 tail_budget: int = 0, head_budget: int = 0, cuckoo=None,
-                 cuckoo_bits: int = 0, cuckoo_seeds=(0, 0),
-                 max_values_per_key: int = 0):
+def probe_tables_stats(index_keys, index_offsets, index_values,
+                       index_num_keys, sigs, sig_valid, probe_cap: int,
+                       dropped_keys=None, bucket_start=None,
+                       probe_steps: int = 0, tail_budget: int = 0,
+                       head_budget: int = 0, cuckoo=None,
+                       cuckoo_bits: int = 0, cuckoo_seeds=(0, 0),
+                       max_values_per_key: int = 0):
     """Capped CSR lookup of [N, F] query signatures, in the probe's native
     layout: (cand [F, N, probe_cap] ascending ids, SENTINEL where empty;
-    counts [F, N] true match counts; tail_drops; head_drops).
+    counts [F, N] true match counts; stats [3] int64: probes with counts
+    > probe_cap, tail drops, head drops).  Two launches on the card
+    (ops/probe_kernel.py: the lookup, then the compactions and gathers),
+    their plain versions on the CPU.
 
     cuckoo=(keys, payload) probes the slot table, else the bucketed
     binary search (or a plain searchsorted without bucket_start).
@@ -280,68 +237,32 @@ def probe_tables(index_keys, index_offsets, index_values, index_num_keys,
     (the read index's drop-all rule, evaluated at probe time); it needs
     the exact counts of the binary search, not the cuckoo payload's.
     """
-    n, f = sigs.shape
-    sigs_t = sigs.T.contiguous()                                  # [F, N]
     if cuckoo is not None:
         if probe_cap >= 1023:
             raise ValueError("cuckoo payload counts saturate at 1023")
         if max_values_per_key > 0:
             raise ValueError("max_values_per_key needs exact counts; the "
                              "cuckoo payload saturates them at 1023")
-        c_keys, c_payload = cuckoo
-        sh = 32 - cuckoo_bits
-        p1 = u64.mul_lo32(sigs_t ^ cuckoo_seeds[0], 0x9E3779B1) >> sh
-        p2 = u64.mul_lo32(sigs_t ^ cuckoo_seeds[1], 0x85EBCA77) >> sh
-        hit1 = torch.gather(c_keys, 1, p1) == sigs_t
-        hit2 = torch.gather(c_keys, 1, p2) == sigs_t
-        found = (hit1 | hit2) & sig_valid[None, :] & (sigs_t != SENTINEL)
-        pay = torch.gather(c_payload, 1, torch.where(hit1, p1, p2))
-        off0 = torch.where(found, pay >> 10, torch.zeros_like(pay))
-        cnt = pay & 1023
-    else:
-        if bucket_start is not None:
-            idx = _bucketed_lower_bound(index_keys, bucket_start, sigs_t,
-                                        probe_steps)
-        else:
-            idx = torch.searchsorted(index_keys, sigs_t)
-        idx_c = idx.clamp(max=index_keys.shape[1] - 1)
-        found = ((torch.gather(index_keys, 1, idx_c) == sigs_t)
-                 & (idx < index_num_keys[:, None]) & sig_valid[None, :])
-        off0 = torch.gather(index_offsets, 1, idx_c)
-        cnt = torch.gather(index_offsets, 1, idx_c + 1) - off0
-        if max_values_per_key > 0:
-            found = found & (cnt <= max_values_per_key)
-    if dropped_keys is not None:
-        found = found & ~_dropped_hit(dropped_keys, sigs_t)
-    counts = torch.where(found, cnt, torch.zeros_like(cnt))        # [F, N]
-
-    v_cols = index_values.shape[1]
-    cap_eff = counts.clamp(max=probe_cap)
-    two_tier = tail_budget > 0 and probe_cap > 4 and f * v_cols < 2**31
+    f = sigs.shape[1]
+    two_tier = (tail_budget > 0 and probe_cap > 4
+                and f * index_values.shape[1] < 2**31)
     c1 = 4 if two_tier else probe_cap
-    zero = torch.zeros((), dtype=torch.int64, device=sigs.device)
+    counts, off0, tallies = probe_kernel.probe_lookup(
+        sigs, sig_valid, index_keys, index_offsets, index_num_keys,
+        probe_cap, c1, dropped_keys, bucket_start, probe_steps, cuckoo,
+        cuckoo_bits, cuckoo_seeds, max_values_per_key)
+    cand, stats = probe_kernel.probe_gather(
+        counts, off0, tallies, index_values, probe_cap, c1, tail_budget,
+        head_budget)
+    return cand, counts, stats
 
-    head_drops = zero
-    if head_budget > 0 and two_tier:
-        head, head_drops = _compact_gather(
-            (counts > 0).reshape(-1), head_budget, off0, cap_eff,
-            index_values, n, 0, c1)
-    else:
-        slot = torch.arange(c1, device=sigs.device)
-        gidx = (off0[:, :, None] + slot).clamp(0, v_cols - 1)
-        vals = torch.gather(index_values, 1, gidx.reshape(f, -1))
-        head = torch.where(slot < cap_eff[:, :, None],
-                           vals.reshape(f, n, c1),
-                           torch.full((), SENTINEL, device=sigs.device))
 
-    tail_drops = zero
-    cand = head
-    if two_tier:
-        tail, tail_drops = _compact_gather(
-            (counts > c1).reshape(-1), tail_budget, off0, cap_eff,
-            index_values, n, c1, probe_cap)
-        cand = torch.cat([head, tail], dim=2)
-    return cand, counts, tail_drops, head_drops
+def probe_tables(*args, **kwargs):
+    """probe_tables_stats' (cand, counts) and its two drop counters:
+    (cand, counts, tail_drops, head_drops), as the JAX package returns
+    them in the probe's native layout."""
+    cand, counts, stats = probe_tables_stats(*args, **kwargs)
+    return cand, counts, stats[1], stats[2]
 
 
 def vote_candidates(cand: torch.Tensor, min_table_hits: int, out_cap: int):

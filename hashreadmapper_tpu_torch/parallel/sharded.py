@@ -364,8 +364,8 @@ class ShardedCoarseMapper:
     def _probe(self, dev: torch.device, ts, sigs: torch.Tensor,
                sig_valid: torch.Tensor, sigs_u=None):
         """The table shards ts on their device dev: (cand [F / T, B, C],
-        counts [F / T, B], tail_drops []) for each shard, forward, then
-        for each shard mirrored."""
+        stats [3]) for each shard, forward, then for each shard
+        mirrored."""
         opts = self.opts
         fl = self.f_local
         b = sig_valid.shape[0]
@@ -379,8 +379,9 @@ class ShardedCoarseMapper:
                         cuckoo=(idx.cuckoo_keys, idx.cuckoo_payload),
                         cuckoo_bits=idx.cuckoo_bits,
                         cuckoo_seeds=idx.cuckoo_seeds)
-                # no head budget: head compaction is off on the mesh
-                cl, nl, td, _ = mi.probe_tables(
+                # no head budget: head compaction is off on the mesh, so
+                # every shard's head drops are 0
+                cl, _, st = mi.probe_tables_stats(
                     idx.keys, idx.offsets, idx.values, idx.num_keys,
                     block[:, t * fl:(t + 1) * fl], sig_valid, opts.probe_cap,
                     dropped_keys=self.dropped[(t, dev)],
@@ -388,38 +389,27 @@ class ShardedCoarseMapper:
                     probe_steps=idx.probe_steps,
                     tail_budget=b * opts.probe_tail_budget_per_read,
                     **cuckoo_kw)
-                out += [cl, nl, td]
+                out += [cl, st]
         return tuple(out)
 
     def _tail(self, dev0: torch.device, read_bases: torch.Tensor,
               read_len: torch.Tensor, cand: torch.Tensor,
-              counts: torch.Tensor, tail_drops: torch.Tensor,
-              with_scores: bool = False):
+              stats: torch.Tensor, with_scores: bool = False):
         """The gathered lists [F (2F undirectional), B, C] of a data shard
-        -> (packed [B, 7] int32, overflow [5] int64), as
-        CoarseMapper._map_batch packs them, and with_scores the fused
-        STEP 2 (scores, tb_ops, tb_status) on its first device (the JAX
-        package's _ensure_scored_tail)."""
+        and its probes' stats [S, 3] -> (packed [B, 7] int32, overflow [5]
+        int64), as CoarseMapper._map_batch packs them, and with_scores the
+        fused STEP 2 (scores, tb_ops, tb_status) on its first device (the
+        JAX package's _ensure_scored_tail).  Probe, vote and pair counters
+        once a data shard; the tail drops summed over the table shards, the
+        head drops 0 (no head budget on the mesh)."""
         opts = self.opts
-        kcap = opts.candidates_per_read_cap
         table, _ = self._replica(dev0)
         ids, _, num_kept = mi.vote_candidates_fnc_auto(
-            cand, opts.min_table_hits, kcap)
-        (out_ori, out_ham, out_shift, out_chrom, out_pos, best_gwin, has,
-         _, out_strand, pair_drops) = coarse_pairs_best(
+            cand, opts.min_table_hits, opts.candidates_per_read_cap)
+        packed, _, overflow = coarse_pairs_best(
             ids, read_bases, read_len, opts, table.genome_hi,
             table.genome_lo, table.win_pos, table.win_chrom,
-            table.chrom_offset, table.chrom_len)
-        out_gwin = torch.where(has, best_gwin, torch.full_like(best_gwin, -1))
-        packed = torch.stack(
-            [out_ori, out_ham, out_shift, out_chrom, out_pos, out_gwin,
-             out_strand], dim=1).to(torch.int32)
-        # probe, vote and pair once a data shard, tail summed over the
-        # table shards, head always 0
-        tail = tail_drops.sum()
-        overflow = torch.stack([(counts > opts.probe_cap).sum(),
-                                (num_kept > kcap).sum(), pair_drops, tail,
-                                torch.zeros_like(tail)])
+            table.chrom_offset, table.chrom_len, stats, num_kept)
         if not with_scores:
             return packed, overflow
         return (packed, overflow, *fused_step2_scores(
@@ -443,12 +433,11 @@ class ShardedCoarseMapper:
             got = self._probe(dev, ts, *(x.to(dev) for x in head))
             for j, key in enumerate(itertools.product(range(self._blocks()),
                                                       ts)):
-                parts[key] = [x.to(dev0) for x in got[3 * j:3 * j + 3]]
+                parts[key] = [x.to(dev0) for x in got[2 * j:2 * j + 2]]
         order = sorted(parts)    # forward before mirrored, in table order
         return self._tail(dev0, read_bases, read_len,
                           torch.cat([parts[k][0] for k in order]),
-                          torch.cat([parts[k][1] for k in order]),
-                          torch.stack([parts[k][2] for k in order]),
+                          torch.stack([parts[k][1] for k in order]),
                           with_scores)
 
     def _step(self, key, like, device=None) -> graphs.CapturedStep:
@@ -497,16 +486,14 @@ class ShardedCoarseMapper:
                 tail = self._step(
                     ("tail", plan, with_scores) + shape,
                     (bases, lens, meta(got[0], nb * n_t * fl),
-                     meta(got[1], nb * n_t * fl),
-                     torch.empty((nb * n_t,), dtype=got[2].dtype,
+                     torch.empty((nb * n_t, 3), dtype=got[1].dtype,
                                  device="meta")), dev0)
-            cand, counts, drops = tail.inputs[2:]
+            cand, stats = tail.inputs[2:]
             for j, (blk, t) in enumerate(itertools.product(
                     range(self._blocks()), ts)):
                 k = blk * n_t + t
-                cand[k * fl:(k + 1) * fl].copy_(got[3 * j])
-                counts[k * fl:(k + 1) * fl].copy_(got[3 * j + 1])
-                drops[k].copy_(got[3 * j + 2])
+                cand[k * fl:(k + 1) * fl].copy_(got[2 * j])
+                stats[k].copy_(got[2 * j + 1])
         return tail.run(functools.partial(self._tail, dev0,
                                           with_scores=with_scores),
                         head.inputs[0], head.inputs[1], *tail.inputs[2:])

@@ -38,14 +38,13 @@ from ..align import sw
 from ..config import ProgramOptions
 from ..index import minhash_index as mi
 from ..io.genome import Genome
-from ..ops import bandtb, encode, minhash, shd, swdev
+from ..ops import bandtb, encode, minhash, pairs_kernel, shd, swdev
 from ..ops.shd_kernel import pack_genome_planes
 from ..parallel.segments import segment_base_span
 from ..utils.progress import ProgressReporter
 from . import graphs
 
 SENTINEL = 0xFFFFFFFF
-_BIG = 0x3FFFFFFF
 OVERFLOW_KEYS = ("probe_overflow", "vote_overflow", "pair_budget_overflow",
                  "probe_tail_overflow", "probe_head_overflow")
 
@@ -150,142 +149,44 @@ def window_bases_device(genome_concat: torch.Tensor, gstart: torch.Tensor,
     return genome_concat[idx.clamp(max=genome_concat.shape[0] - 1)]
 
 
-def compact_pairs(pair_valid: torch.Tensor, n_rows: int, kcap: int,
-                  per_row_budget: int):
-    """Pair compaction of a [n_rows * kcap] candidate grid: with 0 <
-    per_row_budget < kcap the valid pairs are packed, in grid order, into
-    n_rows * per_row_budget slots and pairs beyond them dropped.  Returns
-    (pair_sel [P] grid index of each slot, sel_valid [P], pair_drops,
-    compact)."""
-    dev = pair_valid.device
-    nk = n_rows * kcap
-    if not 0 < per_row_budget < kcap:
-        return (torch.arange(nk, device=dev), pair_valid,
-                torch.zeros((), dtype=torch.int64, device=dev), False)
-    budget = n_rows * per_row_budget
-    rank = torch.cumsum(pair_valid.to(torch.int64), dim=0) - 1
-    n_valid = pair_valid.sum()
-    slot = torch.where(pair_valid & (rank < budget), rank,
-                       torch.full_like(rank, budget))
-    pair_sel = torch.zeros(budget + 1, dtype=torch.int64, device=dev).scatter_(
-        0, slot, torch.arange(nk, device=dev))[:budget]
-    sel_valid = torch.arange(budget, device=dev) < n_valid
-    return pair_sel, sel_valid, (n_valid - budget).clamp(min=0), True
-
-
-def pair_spreader(pair_sel, sel_valid, nk: int):
-    """spread(x, fill): compact_pairs' slot values x back on the [nk]
-    grid, `fill` where no slot landed."""
-    tgt = torch.where(sel_valid, pair_sel, torch.full_like(pair_sel, nk))
-
-    def spread(x: torch.Tensor, fill):
-        buf = torch.full((nk + 1,), fill, dtype=x.dtype, device=x.device)
-        buf[tgt] = x
-        return buf[:nk]
-    return spread
-
-
-def best_of_spaces(eval_pairs, undirectional: bool):
-    """(hamming, shift, orientation, strand) per pair: the directional
-    evaluation, and under undirectional the mirrored (PBAT) one where it
-    is not NONE and the directional one is NONE or has strictly larger
-    Hamming (strand 1 there)."""
-    res = eval_pairs(False)
-    ham, shf, ori = res.hamming, res.shift, res.orientation
-    strand = torch.zeros_like(ham)
-    if undirectional:
-        res_u = eval_pairs(True)
-        better_u = (res_u.orientation != shd.NONE) & (
-            (ori == shd.NONE) | (res_u.hamming < ham))
-        ham = torch.where(better_u, res_u.hamming, ham)
-        shf = torch.where(better_u, res_u.shift, shf)
-        ori = torch.where(better_u, res_u.orientation, ori)
-        strand = better_u.to(strand.dtype)
-    return ham, shf, ori, strand
-
-
 def coarse_pairs_best(ids, read_bases, read_len, opts: ProgramOptions,
                       genome_hi, genome_lo, win_pos, win_chrom,
-                      chrom_offset, chrom_len):
-    """Voted candidate ids [B, K] -> SHD -> per-read best.
+                      chrom_offset, chrom_len, probe_stats, num_kept):
+    """Voted candidate ids [B, K] -> SHD -> per-read best, packed: the
+    pair stage (ops/pairs_kernel.py::pair_select), the SHD launch, with
+    opts.undirectional a second one in the mirrored (PBAT) collapse
+    spaces, and the per-read best (pairs_kernel.read_best).
 
     With 0 < opts.shd_pairs_per_read_budget < K the valid (read,
     candidate) pairs are compacted to B * budget before SHD; pairs beyond
-    it score as rejected and are counted in pair_drops.  Under
-    opts.undirectional every pair is also evaluated in the mirrored (PBAT)
-    collapse spaces, and the mirrored result wins only when it is not NONE
-    and the directional one is NONE or has strictly larger Hamming.
-    Returns (out_ori, out_ham, out_shift, out_chrom, out_pos, best_gwin,
-    has, ori, out_strand, pair_drops): ori [B, K] is every candidate's SHD
-    orientation (NONE where rejected or not evaluated), out_strand is 1
-    where the mirrored space won.
-    """
-    b, kcap = ids.shape
-    dev = ids.device
-    gwin = ids.reshape(-1)
-    pair_valid = gwin != SENTINEL
-    gwin_full = torch.where(pair_valid, gwin, torch.zeros_like(gwin))
-    nk = b * kcap
-    pair_sel, sel_valid, pair_drops, compact = compact_pairs(
-        pair_valid, b, kcap, opts.shd_pairs_per_read_budget)
-
-    gwin_c = gwin_full[pair_sel]
-    ridx = pair_sel // kcap
-    pos = win_pos[gwin_c]
-    chrom = win_chrom[gwin_c]
-    rl_rep = read_len.to(torch.int64)[ridx]
-    loc = shd.extended_window_location(pos, chrom_len[chrom], rl_rep,
-                                       opts.window_size)
+    it score as rejected and are counted in pair_drops.  The mirrored
+    result wins only when it is not NONE and the directional one is NONE
+    or has strictly larger Hamming.  Returns (packed [B, 7] int32: ori,
+    hamming, shift, chrom, pos, window id (-1 unmapped), bs strand; ori
+    [B, K] int8 every candidate's SHD orientation, NONE where rejected or
+    not evaluated; overflow [5] int64 in OVERFLOW_KEYS order from
+    probe_stats [S, 3] (ops/probe_kernel.py::probe_gather's stats of each
+    probe), num_kept [B] and the pair drops)."""
+    pair_sel, ridx, gstart, length, left, sel_valid, pair_drops = \
+        pairs_kernel.pair_select(ids, read_len, win_pos, win_chrom,
+                                 chrom_offset, chrom_len, opts.window_size,
+                                 opts.shd_pairs_per_read_budget)
     params = shd.ShdParams(
         window_size=opts.window_size,
         max_ext_len=opts.window_size + opts.max_read_length,
         max_read_len=read_bases.shape[1],
         max_hamming_percent=opts.max_hamming_percent)
 
-    gstart = chrom_offset[chrom] + loc.start
-
     def eval_pairs(undirectional):
         return shd.shd_pairs_best(
             read_bases, read_len, ridx, genome_hi, genome_lo, gstart,
-            loc.length, loc.left, sel_valid, params,
-            three_n=opts.three_n_seeding, undirectional=undirectional)
+            length, left, sel_valid, params, three_n=opts.three_n_seeding,
+            undirectional=undirectional)
 
-    res_ham, res_shf, res_ori, res_strand = best_of_spaces(
-        eval_pairs, opts.undirectional)
-    if compact:
-        spread = pair_spreader(pair_sel, sel_valid, nk)
-        res_ham, res_shf = spread(res_ham, 0), spread(res_shf, 0)
-        res_ori = spread(res_ori, shd.NONE)
-        res_strand = spread(res_strand, 0)
-
-    ham = res_ham.reshape(b, kcap)
-    shf = res_shf.reshape(b, kcap)
-    ori = res_ori.reshape(b, kcap)
-    good = ori != shd.NONE
-    # best per read: min hamming, then the earliest window (ids ascend in
-    # genome order); first-index argmin over the masked window ids
-    ham_m = torch.where(good, ham, torch.full_like(ham, _BIG))
-    min_h = ham_m.amin(dim=1, keepdim=True)
-    gw = gwin_full.reshape(b, kcap)
-    slot_key = torch.where(good & (ham_m == min_h), gw,
-                           torch.full_like(gw, _BIG))
-    best_slot = slot_key.argmin(dim=1, keepdim=True)
-    has = good.any(dim=1)
-
-    def take(m):
-        return torch.gather(m, 1, best_slot)[:, 0]
-    zero = torch.zeros(b, dtype=torch.int64, device=dev)
-    best_gwin = take(gw)
-    out_ori = torch.where(has, take(ori).to(torch.int64),
-                          torch.full_like(zero, shd.NONE))
-    out_ham = torch.where(has, take(ham).to(torch.int64), zero)
-    out_shift = torch.where(has, take(shf).to(torch.int64), zero)
-    out_strand = torch.where(
-        has, take(res_strand.reshape(b, kcap)).to(torch.int64), zero)
-    out_chrom = torch.where(has, win_chrom[best_gwin], zero)
-    out_pos = torch.where(has, win_pos[best_gwin], zero)
-    return (out_ori, out_ham, out_shift, out_chrom, out_pos, best_gwin, has,
-            ori, out_strand, pair_drops)
+    return pairs_kernel.read_best(
+        eval_pairs(False), eval_pairs(True) if opts.undirectional else None,
+        pair_sel, sel_valid, ids, win_pos, win_chrom, probe_stats, num_kept,
+        pair_drops)
 
 
 def build_genome_s2(genome: Genome, segments=None,
@@ -561,7 +462,7 @@ class CoarseMapper:
                              cuckoo_seeds=idx.cuckoo_seeds)
 
         def probe(sig_block):
-            return mi.probe_tables(
+            return mi.probe_tables_stats(
                 idx.keys, idx.offsets, idx.values, idx.num_keys, sig_block,
                 sig_valid, opts.probe_cap, dropped_keys=self.dropped,
                 bucket_start=idx.bucket_start, probe_steps=idx.probe_steps,
@@ -569,7 +470,8 @@ class CoarseMapper:
                 head_budget=b * opts.probe_head_budget_per_read,
                 **cuckoo_kw)
 
-        cand, counts, tail_drops, head_drops = probe(sigs)
+        cand, _, stats = probe(sigs)
+        stats = stats[None]
         if opts.undirectional:
             # PBAT strands: the same 2F tables probed with the mirrored
             # query spaces, CT(RC read) against the CT tables and GA(read)
@@ -577,24 +479,15 @@ class CoarseMapper:
             sigs_u, _ = minhash.signatures_3n_pair(
                 read_bases, read_len, opts.kmer_length, self._hash_ids_dev,
                 mirror=True)
-            cand_u, counts_u, tail_u, head_u = probe(sigs_u)
+            cand_u, _, stats_u = probe(sigs_u)
             cand = torch.cat([cand, cand_u], dim=0)            # [4F, N, C]
-            counts = torch.cat([counts, counts_u], dim=0)
-            tail_drops = tail_drops + tail_u
-            head_drops = head_drops + head_u
+            stats = torch.cat([stats, stats_u[None]])
         ids, _, num_kept = mi.vote_candidates_fnc_auto(
             cand, opts.min_table_hits, kcap)
-        (out_ori, out_ham, out_shift, out_chrom, out_pos, best_gwin, has,
-         ori, out_strand, pair_drops) = coarse_pairs_best(
+        packed, ori, overflow = coarse_pairs_best(
             ids, read_bases, read_len, opts, t.genome_hi, t.genome_lo,
-            t.win_pos, t.win_chrom, t.chrom_offset, t.chrom_len)
-        out_gwin = torch.where(has, best_gwin, torch.full_like(best_gwin, -1))
-        packed = torch.stack(
-            [out_ori, out_ham, out_shift, out_chrom, out_pos, out_gwin,
-             out_strand], dim=1).to(torch.int32)
-        overflow = torch.stack([(counts > opts.probe_cap).sum(),
-                                (num_kept > kcap).sum(), pair_drops,
-                                tail_drops, head_drops])
+            t.win_pos, t.win_chrom, t.chrom_offset, t.chrom_len, stats,
+            num_kept)
         if collect_candidates:
             # the reference's COUNT_WINDOW_HITS instrumentation
             # (main_gpu.cu:555-574, 824-852): each read's candidate windows

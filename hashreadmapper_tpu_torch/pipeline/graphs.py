@@ -4,8 +4,8 @@ _map_batch_scored_at_impl, _map_pool_scan_impl and
 window_stream._window_batch_impl, one jax.jit program a batch).
 
 PyTorch runs eagerly, so a read batch of the coarse step with the fused
-STEP 2 is some 290 launches from the host, and the card idles between
-them.  A CapturedStep records the step once as a torch.cuda.CUDAGraph and
+STEP 2 is some 90 launches from the host (hand-written kernels and the
+torch operations left around them), and the card idles between them.  A CapturedStep records the step once as a torch.cuda.CUDAGraph and
 replays it once a batch: one graph launch, with the copies into its
 static inputs and out of its static outputs beside it.
 
@@ -71,12 +71,15 @@ def options_key(opts) -> tuple:
 def kernel_wrappers():
     """Every kernel wrapper that counts its launches."""
     from ..ops import (bandtb_kernel as bk, minhash_kernel as mk,
+                       pairs_kernel as pk, probe_kernel as prk,
                        shd_kernel as sk, swdev_kernel as swk,
                        vote_kernel as vk)
     return (mk.signature_stage, mk.sigs_from_bases, mk.sig_min_murmur,
-            vk.vote_candidates_fnc, sk.shd_best, sk.shd_hamming_matrix,
-            sk.shd_pairs_best, swk.pass_batched, swk.sw_forward,
-            swk.sw_reverse, bk.shift_sub, bk.fill_pass, bk.traceback)
+            prk.probe_lookup, prk.probe_gather, vk.vote_candidates_fnc,
+            pk.pair_select, sk.shd_best, sk.shd_hamming_matrix,
+            sk.shd_pairs_best, pk.read_best, swk.pass_batched,
+            swk.sw_forward, swk.sw_reverse, bk.shift_sub, bk.fill_pass,
+            bk.traceback)
 
 
 class _Card:

@@ -33,10 +33,11 @@ from ..config import ProgramOptions
 from ..index import minhash_index as mi
 from ..io.genome import Genome
 from ..ops import minhash, shd
+from ..ops.pairs_kernel import best_of_spaces, compact_pairs, pair_spreader
 from ..ops.shd_kernel import pack_genome_planes
 from . import graphs
-from .engine import (OVERFLOW_KEYS, SENTINEL, CoarseResults, best_of_spaces,
-                     compact_pairs, pair_spreader, window_bases_device)
+from .engine import (OVERFLOW_KEYS, SENTINEL, CoarseResults,
+                     window_bases_device)
 
 # reads a block of the read index's signatures (one signature launch on
 # the card; bounds the plain composition's memory on the CPU)

@@ -687,6 +687,11 @@ def test_kernels_launch_on_the_card_of_their_inputs(dev, monkeypatch):
         test_shd_best_kernel_equals_plain(other, 4, 160)
         test_shd_hamming_matrix_kernel_equals_plain(other, 4, 160, 300)
         test_shd_pairs_best_kernel_equals_plain(other, "threeN", dict())
+        test_probe_kernels_equal_plain(other, "cuckoo, both budgets exceeded",
+                                       999)
+        test_probe_kernels_equal_plain(
+            other, "bucketed, max_values_per_key, empty drops", 999)
+        test_pair_kernels_equal_plain(other, 2, True)
         test_sw_pass_kernel_equals_plain(other, 300, 128, 128)
         test_sw_forward_and_reverse_kernels_equal_plain(other, 128, 128, 64,
                                                         torch.int8)
@@ -1180,6 +1185,261 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="run_cap"):
         bk.traceback(u8(4, 8), u8(4, 8), z(4), z(4), z(4), 48,
                      entry_dtype=torch.uint8)
+
+
+def _probe_index(dev, seed=0, f=6, n_items=3000):
+    """tests/test_torch_probe_pairs.py's index on `dev`: F tables over
+    item signatures with keys of up to 12 values, 5% of items invalid;
+    buckets and cuckoo table built (on the CPU) and moved."""
+    from hashreadmapper_tpu_torch.index import minhash_index as mi
+    rng = np.random.default_rng(seed)
+    sigs = rng.integers(0, 2**32 - 1, size=(n_items, f), dtype=np.uint32)
+    for t in range(f):
+        for h in range(30):
+            rows = rng.choice(n_items, size=rng.integers(2, 13),
+                              replace=False)
+            sigs[rows, t] = np.uint32(5000 + 7 * h)
+    valid = rng.random(n_items) > 0.05
+    idx = mi.build_csr_index_device(torch.from_numpy(sigs.astype(np.int64)),
+                                    torch.from_numpy(valid), 16,
+                                    np.arange(f))
+    idx.build_buckets()
+    assert idx.build_cuckoo()
+    for name in ("keys", "offsets", "values", "num_keys", "bucket_start",
+                 "cuckoo_keys", "cuckoo_payload"):
+        setattr(idx, name, getattr(idx, name).to(dev))
+    return sigs, idx
+
+
+def _probe_queries(sigs, seed, n):
+    rng = np.random.default_rng(seed)
+    q = sigs[rng.integers(0, sigs.shape[0], size=n)].copy()
+    miss = rng.random(q.shape) < 0.3
+    q[miss] = rng.integers(0, 2**32 - 1, size=int(miss.sum()),
+                           dtype=np.uint32)
+    q[:4, 0] = 0xFFFFFFFF
+    q[4:40] = np.uint32(5000)
+    return q.astype(np.int64), rng.random(n) > 0.05
+
+
+# (lookup, probe_cap, tail_budget, head_budget, dropped keys,
+#  max_values_per_key), as tests/test_torch_probe_pairs.py's
+PROBE_CASES = {
+    "cuckoo, both budgets exceeded": ("cuckoo", 8, 6, 40, "some", 0),
+    "bucketed, both budgets exceeded": ("bucketed", 8, 6, 40, "some", 0),
+    "bucketed, max_values_per_key, empty drops": ("bucketed", 6, 64, 700,
+                                                  "empty", 10),
+    "searchsorted, dropped keys, no budgets": ("searchsorted", 8, 0, 0,
+                                               "some", 0),
+    "cuckoo, probe_cap 4 (no tiers)": ("cuckoo", 4, 6, 40, "empty", 0),
+    "cuckoo, budgets not reached": ("cuckoo", 8, 9000, 9000, "none", 0),
+}
+
+
+@pytest.mark.parametrize("n", [256, 999])
+@pytest.mark.parametrize("case", sorted(PROBE_CASES))
+def test_probe_kernels_equal_plain(dev, case, n):
+    """probe_lookup and probe_gather (one launch each) == their plain
+    versions on the same card tensors, every output (counts, off0, the
+    tallies, cand, stats) bit for bit, over F x N probes in whole and
+    partial blocks; and probe_tables_stats on the card == on the CPU."""
+    from hashreadmapper_tpu_torch.index import minhash_index as mi
+    from hashreadmapper_tpu_torch.ops import probe_kernel as prk
+    lookup, cap, tail, head, drops, mvpk = PROBE_CASES[case]
+    sigs, idx = _probe_index(dev)
+    f = idx.num_tables
+    q, q_valid = _probe_queries(sigs, 1, n)
+    sq = torch.from_numpy(q).to(dev)
+    sv = torch.from_numpy(q_valid).to(dev)
+    if drops == "empty":
+        dropped = (torch.full((f, 1), 0xFFFFFFFF, dtype=torch.int64,
+                              device=dev),
+                   torch.zeros(f, dtype=torch.int64, device=dev))
+    elif drops == "some":
+        from hashreadmapper_tpu_torch.index.minhash_index import \
+            build_dropped_keys
+        dk, dn = build_dropped_keys(sigs[:200], np.ones(200, bool), 1)
+        dropped = (torch.from_numpy(dk.astype(np.int64)).to(dev),
+                   torch.from_numpy(dn.astype(np.int64)).to(dev))
+    else:
+        dropped = None
+    kw = dict(dropped_keys=dropped, max_values_per_key=mvpk)
+    if lookup == "cuckoo":
+        kw.update(cuckoo=(idx.cuckoo_keys, idx.cuckoo_payload),
+                  cuckoo_bits=idx.cuckoo_bits, cuckoo_seeds=idx.cuckoo_seeds)
+    if lookup == "bucketed":
+        kw.update(bucket_start=idx.bucket_start, probe_steps=idx.probe_steps)
+    c1 = 4 if tail > 0 and cap > 4 else cap
+    largs = (sq, sv, idx.keys, idx.offsets, idx.num_keys, cap, c1)
+    got = _launched_once(prk.probe_lookup,
+                         lambda: prk.probe_lookup(*largs, **kw))
+    want = prk.probe_lookup_plain(*largs, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    gargs = (got[0], got[1], got[2], idx.values, cap, c1, tail, head)
+    cand = _launched_once(prk.probe_gather,
+                          lambda: prk.probe_gather(*gargs))
+    for g, w in zip(cand, prk.probe_gather_plain(*gargs)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    stats = cand[1].tolist()
+    assert stats[0] > 0
+    if "exceeded" in case:
+        assert stats[1] > 0 and stats[2] > 0
+    if "not reached" in case:
+        assert stats[1:] == [0, 0]
+    cpu_kw = {k: (tuple(x.cpu() for x in v) if isinstance(v, tuple)
+                  and v and torch.is_tensor(v[0]) else v)
+              for k, v in kw.items()}
+    cpu_kw.update({k: kw[k].cpu() for k in ("bucket_start",) if k in kw})
+    args = lambda d: [x.to(d) for x in (idx.keys, idx.offsets, idx.values,
+                                        idx.num_keys, sq, sv)]
+    on_card = mi.probe_tables_stats(*args(dev), cap, tail_budget=tail,
+                                    head_budget=head, **kw)
+    on_cpu = mi.probe_tables_stats(*args("cpu"), cap, tail_budget=tail,
+                                   head_budget=head, **cpu_kw)
+    for g, w in zip(on_card, on_cpu):
+        assert torch.equal(g.cpu(), w)
+
+
+def _pair_inputs(dev, seed, n_reads=300, kcap=8, n_win=900):
+    """Voted-like ids [B, K] (ascending window ids, SENTINEL-padded to a
+    random length, every 11th row empty), reads planted in a random
+    two-chromosome genome at their first candidate window, the window
+    table on `dev`."""
+    from hashreadmapper_tpu_torch.ops.shd_kernel import pack_genome_planes
+    rng = np.random.default_rng(seed)
+    ws, stride, lens_c = 64, 53, (30_000, 20_000)
+    genome = rng.integers(0, 4, size=sum(lens_c), dtype=np.int8)
+    n_c = [(n - 12) // stride + 1 for n in lens_c]
+    win_pos = np.concatenate([np.arange(w) * stride for w in n_c])
+    win_chrom = np.concatenate([np.full(w, c) for c, w in enumerate(n_c)])
+    n_win = len(win_pos)
+    ids = np.full((n_reads, kcap), 0xFFFFFFFF, np.int64)
+    for i in range(n_reads):
+        m = int(rng.integers(0, kcap + 1)) if i % 11 != 10 else 0
+        ids[i, :m] = np.sort(rng.choice(n_win, size=m, replace=False))
+    offs = np.array([0, lens_c[0]])
+    lens = np.full(n_reads, 56, np.int32)
+    lens[::7] = rng.integers(1, 64, size=len(lens[::7]))
+    reads = rng.integers(0, 4, size=(n_reads, 64)).astype(np.int8)
+    for i in range(n_reads):
+        if ids[i, 0] != 0xFFFFFFFF:
+            w = int(ids[i, 0])
+            g0 = offs[win_chrom[w]] + win_pos[w]
+            r = genome[g0:g0 + lens[i]]
+            reads[i, :len(r)] = r
+    g_hi, g_lo = pack_genome_planes(torch.from_numpy(genome))
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
+    return dict(ids=t(ids), reads=t(reads), lens=t(lens), win_pos=t(win_pos),
+                win_chrom=t(win_chrom), chrom_offset=t(offs),
+                chrom_len=t(np.array(lens_c, np.int64)), g_hi=g_hi.to(dev),
+                g_lo=g_lo.to(dev), ws=ws)
+
+
+@pytest.mark.parametrize("budget,undirectional", [
+    (2, False), (3, True), (0, False), (8, True), (7, False)])
+def test_pair_kernels_equal_plain(dev, budget, undirectional):
+    """pair_select and read_best (one launch each) == their plain versions
+    on the same card tensors: compacted with pairs dropped, and without
+    compaction (budget 0 or K), directional and --undirectional; slots
+    past the valid pairs included.  Through engine.coarse_pairs_best the
+    card equals the CPU."""
+    from hashreadmapper_tpu_torch.ops import pairs_kernel as pk
+    from hashreadmapper_tpu_torch.pipeline import engine
+    from hashreadmapper_tpu_torch.config import ProgramOptions
+    c = _pair_inputs(dev, 30 + budget)
+    b = c["ids"].shape[0]
+    sel_args = (c["ids"], c["lens"], c["win_pos"], c["win_chrom"],
+                c["chrom_offset"], c["chrom_len"], c["ws"], budget)
+    got = _launched_once(pk.pair_select, lambda: pk.pair_select(*sel_args))
+    want = pk.pair_select_plain(*sel_args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+    pair_sel, ridx, gstart, length, left, sel_valid, drops = got
+    if 0 < budget < 8:
+        assert int(drops) > 0 or budget == 7
+    params = shd.ShdParams(c["ws"], c["ws"] + 64, 64, 0.1)
+    res = [shd.shd_pairs_best(c["reads"], c["lens"], ridx, c["g_hi"],
+                              c["g_lo"], gstart, length, left, sel_valid,
+                              params, three_n=True, undirectional=u)
+           for u in ((False, True) if undirectional else (False,))]
+    rng = np.random.default_rng(budget)
+    stats = torch.from_numpy(rng.integers(0, 9, size=(2, 3))).to(dev)
+    num_kept = torch.from_numpy(rng.integers(0, 16, size=b).astype(
+        np.int32)).to(dev)
+    best_args = (res[0], res[1] if undirectional else None, pair_sel,
+                 sel_valid, c["ids"], c["win_pos"], c["win_chrom"], stats,
+                 num_kept, drops)
+    got = _launched_once(pk.read_best, lambda: pk.read_best(*best_args))
+    want = pk.read_best_plain(*best_args)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert (got[0][:, 0] != shd.NONE).float().mean() > 0.3
+    opts = ProgramOptions(window_size=c["ws"], max_read_length=64,
+                          max_hamming_percent=0.1, three_n_seeding=True,
+                          undirectional=undirectional,
+                          candidates_per_read_cap=8,
+                          shd_pairs_per_read_budget=budget)
+    outs = [engine.coarse_pairs_best(
+        c["ids"].to(d), c["reads"].to(d), c["lens"].to(d), opts,
+        c["g_hi"].to(d), c["g_lo"].to(d), c["win_pos"].to(d),
+        c["win_chrom"].to(d), c["chrom_offset"].to(d), c["chrom_len"].to(d),
+        stats.to(d), num_kept.to(d)) for d in (dev, "cpu")]
+    for g, w in zip(*outs):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_probe_and_pair_kernels_replay_in_a_captured_step(dev):
+    """The probe's two launches, the vote and the pair stage's three
+    (pair_select, SHD, read_best) as one CapturedStep: captured at the
+    first run, replayed for two batches, each equal to the same step run
+    eagerly; a replay adds the capture's launch counts."""
+    from hashreadmapper_tpu_torch.index import minhash_index as mi
+    from hashreadmapper_tpu_torch.ops import pairs_kernel as pk
+    from hashreadmapper_tpu_torch.ops import probe_kernel as prk
+    from hashreadmapper_tpu_torch.pipeline import engine, graphs
+    from hashreadmapper_tpu_torch.pipeline.engine import CoarseMapper
+    genome, reads, lengths, _ = _four_strand_case()
+    opts = _small_case_opts("threeN", probe_head_budget_per_read=3)
+    m = CoarseMapper(genome, opts, dev)
+    m.ensure_empty_drops()
+    idx, t = m.index, m.table
+    from hashreadmapper_tpu_torch.ops import minhash
+
+    def step(bases, lens, valid):
+        sigs, sig_valid = minhash.signatures_3n_pair(
+            bases, lens, opts.kmer_length, m._hash_ids_dev)
+        cand, counts, stats = mi.probe_tables_stats(
+            idx.keys, idx.offsets, idx.values, idx.num_keys, sigs,
+            sig_valid & valid, opts.probe_cap, dropped_keys=m.dropped,
+            bucket_start=idx.bucket_start, probe_steps=idx.probe_steps,
+            tail_budget=128 * opts.probe_tail_budget_per_read,
+            head_budget=128 * opts.probe_head_budget_per_read,
+            cuckoo=(idx.cuckoo_keys, idx.cuckoo_payload),
+            cuckoo_bits=idx.cuckoo_bits, cuckoo_seeds=idx.cuckoo_seeds)
+        ids, _, num_kept = mi.vote_candidates_fnc_auto(
+            cand, opts.min_table_hits, opts.candidates_per_read_cap)
+        return (cand, counts, stats) + engine.coarse_pairs_best(
+            ids, bases, lens, opts, t.genome_hi, t.genome_lo, t.win_pos,
+            t.win_chrom, t.chrom_offset, t.chrom_len, stats[None], num_kept)
+
+    bases, lens, valid, _ = m.stage_reads_device(reads, lengths)
+    captured = graphs.CapturedStep((bases[:128], lens[:128], valid[:128]))
+    wrappers = (prk.probe_lookup, prk.probe_gather, pk.pair_select,
+                pk.read_best)
+    for run, s in enumerate((0, 128, 0)):
+        sl = slice(s, s + 128)
+        eager = step(bases[sl], lens[sl], valid[sl])
+        before = [w.launches for w in wrappers]
+        got = captured.run(step, bases[sl], lens[sl], valid[sl])
+        torch.cuda.synchronize()
+        assert captured.graph is not None
+        # the first run's warm-up launched each once besides the replay
+        assert [w.launches - n for w, n in zip(wrappers, before)] == \
+            [2 if run == 0 else 1] * len(wrappers)
+        for g, e in zip(got, eager):
+            assert g.dtype == e.dtype and torch.equal(g, e)
+    assert int(got[2][2]) > 0           # batch 0 is over the head budget
 
 
 def test_a_capture_that_reads_back_raises(dev):
