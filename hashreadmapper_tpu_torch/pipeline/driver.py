@@ -30,11 +30,19 @@ from ..utils.progress import ProgressReporter
 from ..parallel.region_sharded import (SINGLE_MAPPER_BASE_CAP,
                                        RegionShardedMapper)
 from ..parallel.sharded import ShardedCoarseMapper, make_mesh
+from ..utils import tracing
 from ..utils.timers import PhaseTimers
 from . import mapping, mapping_edlib
 from .engine import CoarseMapper, CoarseResults
 from .mapping import run_cssw
 from .records import MappingRecords, emit_sam, emit_vcf
+
+
+def _step2_chunk(parent, *args, **kwargs):
+    """run_cssw on a worker, as a span whose parent is the submitting
+    chunk's."""
+    with tracing.span("step2.chunk", parent=parent):
+        return run_cssw(*args, **kwargs)
 
 
 def _pipelined_sw(mapper, bases: np.ndarray,
@@ -55,24 +63,27 @@ def _pipelined_sw(mapper, bases: np.ndarray,
     progress = ProgressReporter(n, label="reads mapped+aligned",
                                 enabled=opts.show_progress)
     res_parts, futs = [], []
-    with ThreadPoolExecutor(max_workers=2) as ex:
+    with ThreadPoolExecutor(max_workers=2, thread_name_prefix="step2") as ex:
         for c0 in range(0, n, chunk):
             c1 = min(c0 + chunk, n)
-            scores = None
-            if opts.step2_device:
-                res, scores = mapper.map_reads(
-                    bases[c0:c1], reads.lengths[c0:c1], with_scores=True)
-            else:
-                res = mapper.map_reads(bases[c0:c1], reads.lengths[c0:c1])
-            res_parts.append(res)
-            futs.append((c0, c1, ex.submit(
-                run_cssw, genome, genome_rc, res.orientation, res.position,
-                res.chromosome_id, reads.slice_rows(c0, c1), opts,
-                res.bs_strand, scores, device=mapper.device)))
+            with tracing.span("driver.chunk", chunk=c0, reads=c1 - c0):
+                scores = None
+                if opts.step2_device:
+                    res, scores = mapper.map_reads(
+                        bases[c0:c1], reads.lengths[c0:c1], with_scores=True)
+                else:
+                    res = mapper.map_reads(bases[c0:c1], reads.lengths[c0:c1])
+                res_parts.append(res)
+                futs.append((c0, c1, ex.submit(
+                    _step2_chunk, tracing.current(), genome, genome_rc,
+                    res.orientation, res.position, res.chromosome_id,
+                    reads.slice_rows(c0, c1), opts, res.bs_strand, scores,
+                    device=mapper.device)))
         parts = []
-        for c0, c1, fut in futs:
-            parts.append((c0, fut.result()))
-            progress.add(c1 - c0)
+        with tracing.span("driver.wait"):
+            for c0, c1, fut in futs:
+                parts.append((c0, fut.result()))
+                progress.add(c1 - c0)
     if all(isinstance(p, MappingRecords) for _, p in parts):
         mappingout = MappingRecords.concat([p for _, p in parts])
     else:

@@ -41,6 +41,7 @@ from ..io.genome import Genome
 from ..ops import bandtb, encode, minhash, pairs_kernel, shd, swdev
 from ..ops.shd_kernel import pack_genome_planes
 from ..parallel.segments import segment_base_span
+from ..utils import tracing
 from ..utils.progress import ProgressReporter
 from . import graphs
 
@@ -293,13 +294,6 @@ class CoarseMapper:
             n_win = int(self.seg_local_base[-1])
         self.hash_ids = np.arange(plan_num_hash_functions(opts, n_win),
                                   dtype=np.uint32)
-        self._hash_ids_dev = torch.from_numpy(
-            self.hash_ids.astype(np.int64)).to(self.device)
-        self.table = build_window_table(genome, self.device, segments, opts)
-        win_pos, win_chrom, _ = self._window_geometry()
-        self.table.win_pos = torch.from_numpy(win_pos).to(self.device)
-        self.table.win_chrom = torch.from_numpy(win_chrom).to(self.device)
-        self.table.num_windows = len(win_pos)
         self._genome_s2 = None
         # dropped-keys mask of the read set (parity mode); None until
         # ensure_read_drops or map_reads sets it
@@ -312,17 +306,32 @@ class CoarseMapper:
         self._steps = {}
         self._steps_dropped = None
         self.index = None
-        if not build_index:
-            return
-        if load_index_from:
-            self.index = mi.CsrIndex.load(load_index_from, self.device)
-            if self.index.kmer_length != opts.kmer_length:
-                raise ValueError("loaded index was built with a different k")
-        else:
-            self.index = self._build_window_index(sig_batch)
-        self.index.build_buckets()
-        if opts.probe_cap < 1023 and build_direct_probe:
-            self.index.build_cuckoo()
+        with tracing.span("index.build"):
+            with tracing.span("index.table"):
+                self._hash_ids_dev = torch.from_numpy(
+                    self.hash_ids.astype(np.int64)).to(self.device)
+                self.table = build_window_table(genome, self.device,
+                                                segments, opts)
+                win_pos, win_chrom, _ = self._window_geometry()
+                self.table.win_pos = torch.from_numpy(win_pos).to(
+                    self.device)
+                self.table.win_chrom = torch.from_numpy(win_chrom).to(
+                    self.device)
+                self.table.num_windows = len(win_pos)
+            if not build_index:
+                return
+            if load_index_from:
+                self.index = mi.CsrIndex.load(load_index_from, self.device)
+                if self.index.kmer_length != opts.kmer_length:
+                    raise ValueError(
+                        "loaded index was built with a different k")
+            else:
+                self.index = self._build_window_index(sig_batch)
+            with tracing.span("index.buckets"):
+                self.index.build_buckets()
+            if opts.probe_cap < 1023 and build_direct_probe:
+                with tracing.span("index.cuckoo"):
+                    self.index.build_cuckoo()
 
     # -- index construction ------------------------------------------------
     def _window_geometry(self):
@@ -390,9 +399,11 @@ class CoarseMapper:
 
     def _build_window_index(self, sig_batch: int) -> mi.CsrIndex:
         """Window signatures, then the CSR build, all on the device."""
-        return mi.build_csr_index_device(
-            *self.window_signatures(sig_batch), self.opts.kmer_length,
-            self.hash_ids)
+        with tracing.span("index.signatures"):
+            sigs = self.window_signatures(sig_batch)
+        with tracing.span("index.csr"):
+            return mi.build_csr_index_device(*sigs, self.opts.kmer_length,
+                                             self.hash_ids)
 
     def save_index(self, path: str) -> None:
         self.index.save(path)
@@ -676,11 +687,16 @@ class CoarseMapper:
         collect_candidates sets last_candidates."""
         n = read_bases.shape[0]
         pool_n = self.read_pool_size(n, self.opts.batchsize) if n else 0
-        parts = [self.map_staged(
-            *self.stage_reads_device(read_bases[c0:c1], read_lengths[c0:c1]),
-            c1 - c0, with_scores, collect_candidates)
-            for c0, c1 in pool_ranges(n, pool_n)]
-        return self.fetch_results(parts, with_scores, collect_candidates)
+        parts = []
+        for c0, c1 in pool_ranges(n, pool_n):
+            with tracing.span("engine.stage"):
+                staged = self.stage_reads_device(read_bases[c0:c1],
+                                                 read_lengths[c0:c1])
+            with tracing.span("engine.enqueue"):
+                parts.append(self.map_staged(*staged, c1 - c0, with_scores,
+                                             collect_candidates))
+        with tracing.span("engine.fetch"):
+            return self.fetch_results(parts, with_scores, collect_candidates)
 
     def map_staged(self, bases, lens, valid, n_pad: int, n: int,
                    with_scores: bool = False,
@@ -739,11 +755,12 @@ class CoarseMapper:
         set last_candidates = (ids [N, K] uint32, SENTINEL where empty;
         ori [N, K] int8), every read's voted candidate windows and the SHD
         orientation of each (eval/window_stats.py reads them)."""
-        # parity mode: the read-side key drops of this read set, unless a
-        # chunked caller has set them from the whole set already
-        self.ensure_read_drops(read_bases, read_lengths)
-        packed, overflow, bundle = self.map_reads_packed(
-            read_bases, read_lengths, with_scores, collect_candidates)
+        with tracing.span("engine.map_reads", reads=len(read_lengths)):
+            # parity mode: the read-side key drops of this read set, unless
+            # a chunked caller has set them from the whole set already
+            self.ensure_read_drops(read_bases, read_lengths)
+            packed, overflow, bundle = self.map_reads_packed(
+                read_bases, read_lengths, with_scores, collect_candidates)
         results = CoarseResults(
             orientation=packed[:, 0].astype(np.int8),
             hamming=packed[:, 1].astype(np.int32),

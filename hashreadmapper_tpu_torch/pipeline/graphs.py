@@ -52,6 +52,8 @@ from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
+from ..utils import tracing
+
 Step = Callable[..., Sequence[torch.Tensor]]
 
 # the ProgramOptions fields the batch steps read: a capture bakes them in,
@@ -198,7 +200,8 @@ class CapturedStep:
         with _on(self.device):
             self._load(args)
             if self.graph is None:
-                self._capture(step)
+                with tracing.span("engine.capture"):
+                    self._capture(step)
             self.graph.replay()
         for fn, n in self._replay_counts:
             fn.launches += n

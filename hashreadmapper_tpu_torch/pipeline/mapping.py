@@ -49,6 +49,7 @@ from ..io.readstore import ReadStorage
 from ..io.vcf import MAP_QUALITY_THRESHOLD, VariantHandler, parse_cigar
 from ..cpu import oracle
 from ..ops import bandtb, swdev
+from ..utils import tracing
 from .records import MappingRecords
 
 FORWARD, REVERSE_COMPLEMENT, NONE = 1, 2, 3
@@ -352,84 +353,85 @@ def _run_cssw_device(genome, genome_rc, orientation, position, chromosome_id,
     """mapping._run_cssw_device in records mode: pair prep on the host,
     score passes and traceback on `device` (fused bundle or chunks here),
     native finish and the records assembly on the host."""
-    n = reads.num_reads
-    lens = reads.lengths.astype(np.int64)
-    lens32 = lens.astype(np.int32)
-    lq = max(1, reads.max_length)
-    mat = reads.bases_matrix(lq)
-    idx = np.arange(lq, dtype=np.int32)
-    valid = idx[None, :] < lens32[:, None]
-    rev_idx = np.maximum(lens32[:, None] - 1 - idx[None, :], 0)
-    rc_of = lambda a: np.where(valid, 3 - np.take_along_axis(a, rev_idx, 1),
-                               0)
-    # query = read, reverse-complemented in place when orientation is RC
-    fwd_mat = np.where((orientation == REVERSE_COMPLEMENT)[:, None],
-                       rc_of(mat), mat)
-    rcq_mat = rc_of(fwd_mat)
-    ws = opts.window_size
-    win, win_rc, wlens = _windows(genome, genome_rc, position, chromosome_id,
-                                  ws)
-    q_ascii, rcq_ascii = _B4[fwd_mat], _B4[rcq_mat]
+    with tracing.span("step2.prep"):
+        n = reads.num_reads
+        lens = reads.lengths.astype(np.int64)
+        lens32 = lens.astype(np.int32)
+        lq = max(1, reads.max_length)
+        mat = reads.bases_matrix(lq)
+        idx = np.arange(lq, dtype=np.int32)
+        valid = idx[None, :] < lens32[:, None]
+        rev_idx = np.maximum(lens32[:, None] - 1 - idx[None, :], 0)
+        rc_of = lambda a: np.where(
+            valid, 3 - np.take_along_axis(a, rev_idx, 1), 0)
+        # query = read, reverse-complemented in place when orientation is RC
+        fwd_mat = np.where((orientation == REVERSE_COMPLEMENT)[:, None],
+                           rc_of(mat), mat)
+        rcq_mat = rc_of(fwd_mat)
+        ws = opts.window_size
+        win, win_rc, wlens = _windows(genome, genome_rc, position,
+                                      chromosome_id, ws)
+        q_ascii, rcq_ascii = _B4[fwd_mat], _B4[rcq_mat]
 
-    m = np.nonzero(orientation != NONE)[0]
-    nm = len(m)
-    if nm == 0:
-        z32 = lambda k: np.zeros(k, np.int32)
-        return MappingRecords(
-            n=n, lq=lq, ws=ws, q=q_ascii, q_len=lens32, win=win,
-            win_len=wlens.astype(np.int32),
-            position=position.astype(np.int64),
-            chrom=chromosome_id.astype(np.int32),
-            flag0=np.full(n, 0x4, np.int32), flag1=z32(n), sw=z32(2 * n),
-            nb=z32(2 * n), qb=z32(2 * n), conv=z32(2 * n),
-            cig_pool=np.zeros(0, np.uint8), cig_off=np.zeros(2 * n, np.int64),
-            cig_len=z32(2 * n))
-    # pairs [2i] = 3N query, [2i+1] = 3N RC query, same 3N window; reads
-    # with bs_strand = 1 use the mirrored PBAT collapse (G->A)
-    und = bool(bs_strand.any())
-    sc = (bs_strand != 0)[:, None]
+        m = np.nonzero(orientation != NONE)[0]
+        nm = len(m)
+        if nm == 0:
+            z32 = lambda k: np.zeros(k, np.int32)
+            return MappingRecords(
+                n=n, lq=lq, ws=ws, q=q_ascii, q_len=lens32, win=win,
+                win_len=wlens.astype(np.int32),
+                position=position.astype(np.int64),
+                chrom=chromosome_id.astype(np.int32),
+                flag0=np.full(n, 0x4, np.int32), flag1=z32(n), sw=z32(2 * n),
+                nb=z32(2 * n), qb=z32(2 * n), conv=z32(2 * n),
+                cig_pool=np.zeros(0, np.uint8),
+                cig_off=np.zeros(2 * n, np.int64), cig_len=z32(2 * n))
+        # pairs [2i] = 3N query, [2i+1] = 3N RC query, same 3N window; reads
+        # with bs_strand = 1 use the mirrored PBAT collapse (G->A)
+        und = bool(bs_strand.any())
+        sc = (bs_strand != 0)[:, None]
 
-    def collapse(a):
-        ct = np.where(a == 1, 3, a)
-        if not und:
-            return ct.astype(np.int8)
-        return np.where(sc, np.where(a == 2, 0, a), ct).astype(np.int8)
-    P = 2 * nm
-    pair_q = np.empty((P, lq), np.int8)
-    pair_q[0::2] = collapse(fwd_mat)[m]
-    pair_q[1::2] = collapse(rcq_mat)[m]
-    pair_ref = np.repeat(collapse(sw.TRANSLATE[win])[m], 2, axis=0)
-    pair_rl = np.repeat(lens[m], 2).astype(np.int32)
-    pair_fl = np.repeat(wlens[m], 2).astype(np.int32)
-    pair_ml = np.repeat(np.maximum(15, lens[m] // 2), 2).astype(np.int32)
+        def collapse(a):
+            ct = np.where(a == 1, 3, a)
+            if not und:
+                return ct.astype(np.int8)
+            return np.where(sc, np.where(a == 2, 0, a), ct).astype(np.int8)
+        P = 2 * nm
+        pair_q = np.empty((P, lq), np.int8)
+        pair_q[0::2] = collapse(fwd_mat)[m]
+        pair_q[1::2] = collapse(rcq_mat)[m]
+        pair_ref = np.repeat(collapse(sw.TRANSLATE[win])[m], 2, axis=0)
+        pair_rl = np.repeat(lens[m], 2).astype(np.int32)
+        pair_fl = np.repeat(wlens[m], 2).astype(np.int32)
+        pair_ml = np.repeat(np.maximum(15, lens[m] // 2), 2).astype(np.int32)
 
-    use_tb = bool(opts.step2_device_traceback)
-    ops_all = np.zeros((P, bandtb.N_ENTRIES), np.int16) if use_tb else None
-    fail_all = np.zeros(P, np.int8) if use_tb else None
-    pre_tb = None
-    if isinstance(pre_scores, tuple):
-        pre_scores, *pre_tb = pre_scores
-    if pre_scores is not None:
-        # the fused coarse step scored every (read x 2) pair: select the
-        # mapped reads' interleaved rows
-        sel = np.empty(P, np.int64)
-        sel[0::2] = 2 * m
-        sel[1::2] = 2 * m + 1
-        dev = swdev.unpack_scores(pre_scores[:, sel].astype(np.int32))
-        if use_tb and pre_tb is not None and pre_tb[0].shape[1] > 1:
-            ops_all = pre_tb[0][sel].astype(np.int16)
-            fail_all = pre_tb[1][sel].astype(np.int8)
-        elif use_tb:
-            _traceback(dev, pair_q, pair_ref, ops_all, fail_all, device)
-    else:
-        # pairs staged to the device in chunks; one fetch of all rows
-        chunk = max(256, int(opts.step2_pair_chunk))
-        sl = lambda a, s: a[s:s + chunk]
-        dev = swdev.ssw_score_collect(torch.cat([swdev.ssw_score_dispatch(
-            sl(pair_q, s), sl(pair_rl, s), sl(pair_ref, s), sl(pair_fl, s),
-            sl(pair_ml, s), device) for s in range(0, P, chunk)], dim=1))
-        if use_tb:
-            _traceback(dev, pair_q, pair_ref, ops_all, fail_all, device)
+        use_tb = bool(opts.step2_device_traceback)
+        ops_all = np.zeros((P, bandtb.N_ENTRIES), np.int16) if use_tb else None
+        fail_all = np.zeros(P, np.int8) if use_tb else None
+        pre_tb = None
+        if isinstance(pre_scores, tuple):
+            pre_scores, *pre_tb = pre_scores
+        if pre_scores is not None:
+            # the fused coarse step scored every (read x 2) pair: select the
+            # mapped reads' interleaved rows
+            sel = np.empty(P, np.int64)
+            sel[0::2] = 2 * m
+            sel[1::2] = 2 * m + 1
+            dev = swdev.unpack_scores(pre_scores[:, sel].astype(np.int32))
+            if use_tb and pre_tb is not None and pre_tb[0].shape[1] > 1:
+                ops_all = pre_tb[0][sel].astype(np.int16)
+                fail_all = pre_tb[1][sel].astype(np.int8)
+            elif use_tb:
+                _traceback(dev, pair_q, pair_ref, ops_all, fail_all, device)
+        else:
+            # pairs staged to the device in chunks; one fetch of all rows
+            chunk = max(256, int(opts.step2_pair_chunk))
+            sl = lambda a, s: a[s:s + chunk]
+            dev = swdev.ssw_score_collect(torch.cat([swdev.ssw_score_dispatch(
+                sl(pair_q, s), sl(pair_rl, s), sl(pair_ref, s), sl(pair_fl, s),
+                sl(pair_ml, s), device) for s in range(0, P, chunk)], dim=1))
+            if use_tb:
+                _traceback(dev, pair_q, pair_ref, ops_all, fail_all, device)
 
     # native CIGAR finish (multi-threaded) of every pair that is neither
     # saturated (host rerun in _assemble_records) nor degenerate
@@ -440,26 +442,38 @@ def _run_cssw_device(genome, genome_rc, orientation, position, chromosome_id,
     cl_all = np.zeros(P, np.int32)
     flags_all = np.zeros(P, np.int32)
     raw_chunks = []
-    if nf:
-        tb_kw = (dict(dev_ops=ops_all[fin], dev_fail=fail_all[fin])
-                 if use_tb else {})
-        raw_b, clens, _mism, flags = native.ssw_finish_batch(
-            pair_q[fin].tobytes(), np.arange(nf, dtype=np.int64) * lq,
-            pair_rl[fin], pair_ref[fin].tobytes(),
-            np.arange(nf, dtype=np.int64) * ws, pair_fl[fin],
-            dev["score1"][fin], dev["ref_begin"][fin], dev["ref_end"][fin],
-            dev["query_begin"][fin], dev["query_end"][fin],
-            dev["flag"][fin], threads=max(1, opts.threads), codes=True,
-            diag=dev["diag"][fin], raw=True, cigar_stride=CIGAR_STRIDE,
-            **tb_kw)
-        cl_all[fin] = clens
-        flags_all[fin] = flags
-        raw_chunks.append((fin, raw_b, clens))
-    return _assemble_records(
-        n, lq, ws, nm, m, orientation, position, chromosome_id, lens, lens32,
-        wlens, win, win_rc, q_ascii, rcq_ascii, pair_q, pair_ref, pair_rl,
-        pair_fl, pair_ml, dev, fb, dg, cl_all, flags_all, raw_chunks,
-        CIGAR_STRIDE, bs_strand, und, opts, lambda label: None, None)
+    counts = {}
+    if tracing.enabled():
+        # pairs whose DP runs on the host: the saturated ones' rerun in
+        # _assemble_records, and in the native finish every traceback
+        # that the device did not walk (status 2: its entry budget
+        # overflowed; all but the diagonal ones without device traceback)
+        walked = (fail_all[fin] != 2) if use_tb else np.zeros(nf, bool)
+        counts = dict(pairs=P, host_dp_pairs=int(np.count_nonzero(fb))
+                      + int(np.count_nonzero(~dev["diag"][fin] & ~walked)))
+    with tracing.span("step2.finish", **counts):
+        if nf:
+            tb_kw = (dict(dev_ops=ops_all[fin], dev_fail=fail_all[fin])
+                     if use_tb else {})
+            raw_b, clens, _mism, flags = native.ssw_finish_batch(
+                pair_q[fin].tobytes(), np.arange(nf, dtype=np.int64) * lq,
+                pair_rl[fin], pair_ref[fin].tobytes(),
+                np.arange(nf, dtype=np.int64) * ws, pair_fl[fin],
+                dev["score1"][fin], dev["ref_begin"][fin],
+                dev["ref_end"][fin], dev["query_begin"][fin],
+                dev["query_end"][fin], dev["flag"][fin],
+                threads=max(1, opts.threads), codes=True,
+                diag=dev["diag"][fin], raw=True, cigar_stride=CIGAR_STRIDE,
+                **tb_kw)
+            cl_all[fin] = clens
+            flags_all[fin] = flags
+            raw_chunks.append((fin, raw_b, clens))
+    with tracing.span("step2.assemble"):
+        return _assemble_records(
+            n, lq, ws, nm, m, orientation, position, chromosome_id, lens,
+            lens32, wlens, win, win_rc, q_ascii, rcq_ascii, pair_q, pair_ref,
+            pair_rl, pair_fl, pair_ml, dev, fb, dg, cl_all, flags_all,
+            raw_chunks, CIGAR_STRIDE, bs_strand, und, opts)
 
 
 def _traceback(dev, pair_q, pair_ref, ops_all, fail_all, device):
@@ -559,7 +573,7 @@ def _assemble_records(n, lq, ws, nm, m, orientation, position, chromosome_id,
                       lens, lens32, wlens, win, win_rc, q_ascii, rcq_ascii,
                       pair_q, pair_ref, pair_rl, pair_fl, pair_ml,
                       dev, fb, dg, cl_all, flags_all, raw_chunks, stride,
-                      bs_strand, und, opts, _mark, _marks):
+                      bs_strand, und, opts):
     """Records-mode tail of _run_cssw_device: patch degenerate/fallback
     pairs, pool the CIGAR bytes, rescore natively in place, and scatter
     the per-pair arrays into the [2n] MappingRecords layout."""
@@ -581,7 +595,6 @@ def _assemble_records(n, lq, ws, nm, m, orientation, position, chromosome_id,
         cb = al.cigar_string.encode("latin1")
         cl_all[pi] = len(cb)
         fb_cigs[int(pi)] = cb
-    _mark("fallback_pairs")
 
     # pool the per-pair CIGAR bytes (strided native buffers -> compact)
     cig_off = np.zeros(P, np.int64)
@@ -622,22 +635,23 @@ def _assemble_records(n, lq, ws, nm, m, orientation, position, chromosome_id,
     wl2 = np.repeat(wlens[m], 2).astype(np.int32)
     block = 1 << 17   # keeps int32 pool offsets safe
     conv = np.empty(P, np.int32)
-    for b0 in range(0, P, block):
-        b1 = min(b0 + block, P)
-        nb_ = b1 - b0
-        pool_b = pool[int(cig_off[b0]):
-                      int(cig_off[b1 - 1]) + int(cl_all[b1 - 1])].tobytes()
-        conv[b0:b1] = native.rescore_batch(
-            qa[b0:b1].tobytes(),
-            np.arange(nb_, dtype=np.int64) * lq, qa_len[b0:b1],
-            ref_rows[b0:b1].tobytes(),
-            np.arange(nb_, dtype=np.int64) * ws, wl2[b0:b1],
-            rcref_rows[b0:b1].tobytes(),
-            np.arange(nb_, dtype=np.int64) * ws, wl2[b0:b1],
-            pool_b, cig_off[b0:b1] - cig_off[b0], cl_all[b0:b1],
-            sw_pairs[b0:b1], nb_pairs[b0:b1],
-            threads=max(1, opts.threads))
-    _mark("rescore")
+    with tracing.span("step2.rescore"):
+        for b0 in range(0, P, block):
+            b1 = min(b0 + block, P)
+            nb_ = b1 - b0
+            pool_b = pool[int(cig_off[b0]):
+                          int(cig_off[b1 - 1]) + int(cl_all[b1 - 1])
+                          ].tobytes()
+            conv[b0:b1] = native.rescore_batch(
+                qa[b0:b1].tobytes(),
+                np.arange(nb_, dtype=np.int64) * lq, qa_len[b0:b1],
+                ref_rows[b0:b1].tobytes(),
+                np.arange(nb_, dtype=np.int64) * ws, wl2[b0:b1],
+                rcref_rows[b0:b1].tobytes(),
+                np.arange(nb_, dtype=np.int64) * ws, wl2[b0:b1],
+                pool_b, cig_off[b0:b1] - cig_off[b0], cl_all[b0:b1],
+                sw_pairs[b0:b1], nb_pairs[b0:b1],
+                threads=max(1, opts.threads))
 
     # scatter per-pair arrays ([P] over mapped reads) into [2n]
     idx2 = np.empty(P, np.int64)
@@ -658,11 +672,6 @@ def _assemble_records(n, lq, ws, nm, m, orientation, position, chromosome_id,
     flag0[m] = flags_all[0::2]
     flag1[m] = flags_all[1::2]
     flag0[orientation == NONE] = 0x4
-    if _marks is not None:
-        import sys as _sys
-        for (l0, t0), (l1, t1) in zip(_marks, _marks[1:]):
-            print(f"STEP2 {l1}: {t1 - t0:.3f}s", file=_sys.stderr,
-                  flush=True)
     return MappingRecords(
         n=n, lq=lq, ws=ws, q=q_ascii, q_len=lens32.astype(np.int32),
         win=win, win_len=wlens.astype(np.int32),

@@ -28,6 +28,7 @@ from typing import List, Optional
 import numpy as np
 
 from .. import native
+from ..utils import tracing
 
 
 @dataclass
@@ -148,19 +149,22 @@ def _names_arrays(genome):
 
 def emit_sam(rec: MappingRecords, genome, path: str, threads: int = 0):
     """print_to_sam over records: native bulk writer, oracle fallback."""
-    if native.emit_available():
-        pool, off, lens = _names_arrays(genome)
-        return native.sam_emit(path, rec, pool, off, lens, threads=threads)
-    from .mapping import print_to_sam
-    return print_to_sam(rec.to_aas(), genome, path)
+    with tracing.span("records.emit_sam"):
+        if native.emit_available():
+            pool, off, lens = _names_arrays(genome)
+            return native.sam_emit(path, rec, pool, off, lens,
+                                   threads=threads)
+        from .mapping import print_to_sam
+        return print_to_sam(rec.to_aas(), genome, path)
 
 
 def emit_vcf(rec: MappingRecords, genome, outputfile: str) -> str:
     """do_vc over records: native bulk writer, oracle fallback."""
     path = outputfile + ".VCF"
-    if native.emit_available():
-        pool, off, lens = _names_arrays(genome)
-        if native.vc_emit(path, rec, pool, off, lens):
-            return path
-    from .mapping import do_vc
-    return do_vc(rec.to_aas(), genome, outputfile)
+    with tracing.span("records.emit_vcf"):
+        if native.emit_available():
+            pool, off, lens = _names_arrays(genome)
+            if native.vc_emit(path, rec, pool, off, lens):
+                return path
+        from .mapping import do_vc
+        return do_vc(rec.to_aas(), genome, outputfile)

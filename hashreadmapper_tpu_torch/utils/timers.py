@@ -2,7 +2,7 @@
 phases open jax.profiler scopes).
 
 Prints "TIMING: <seconds> s : <label>" like the JAX package; each phase is
-also a torch.profiler range, visible in a trace taken around the run.
+also a span of utils/tracing.py (recorded when the tracer is on).
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ import contextlib
 import time
 from typing import Dict, List, Tuple
 
-import torch
+from . import tracing
 
 
 class PhaseTimers:
@@ -22,7 +22,7 @@ class PhaseTimers:
     def phase(self, label: str):
         start = time.perf_counter()
         try:
-            with torch.profiler.record_function(label):
+            with tracing.span(label):
                 yield
         finally:
             self._totals.append((label, time.perf_counter() - start))
