@@ -755,12 +755,21 @@ class CoarseMapper:
         set last_candidates = (ids [N, K] uint32, SENTINEL where empty;
         ori [N, K] int8), every read's voted candidate windows and the SHD
         orientation of each (eval/window_stats.py reads them)."""
-        with tracing.span("engine.map_reads", reads=len(read_lengths)):
+        with tracing.span("engine.map_reads",
+                          reads=len(read_lengths)) as sp:
             # parity mode: the read-side key drops of this read set, unless
             # a chunked caller has set them from the whole set already
             self.ensure_read_drops(read_bases, read_lengths)
             packed, overflow, bundle = self.map_reads_packed(
                 read_bases, read_lengths, with_scores, collect_candidates)
+            if sp is not None:
+                # rows mapped, and of those the ones the mirrored (G->A)
+                # space won under --undirectional
+                mapped = packed[:, 0] != 3
+                sp.attrs["mapped"] = int(np.count_nonzero(mapped))
+                sp.attrs["mirrored"] = int(np.count_nonzero(
+                    mapped & (packed[:, 6] == 1)))
+                sp.attrs.update(zip(OVERFLOW_KEYS, overflow.tolist()))
         results = CoarseResults(
             orientation=packed[:, 0].astype(np.int8),
             hamming=packed[:, 1].astype(np.int32),
