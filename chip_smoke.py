@@ -19,8 +19,9 @@ Phase 1  each of the seventeen CUDA kernels (the eight counterparts of
          --undirectional's pairs) against its
          plain PyTorch version at the main path's shapes (integers:
          exact), the score passes on short indel pairs and on
-         flagship-like pairs, the vote also on the shared-memory side of
-         its 2,048-id switch, shd_best also on the main path's shift
+         flagship-like pairs, the vote also on the wide side of its
+         2,048-id switch (lists filled as at chr1 caps, F 32 and 64),
+         shd_best also on the main path's shift
          bounds, the fused SHD stage on planted reads, with
          three times (ms: the
          device's time a launch, calls back to back between two CUDA
@@ -146,6 +147,14 @@ AT_SCALE = ["--probeCap", "128", "--candidatesPerRead", "32",
 GENOME_LEN = 8_000_000
 N_READS, READ_LEN = 49_152, 100
 N_PARITY = 16_384
+# ids a list of C 128 at chr1 caps, by bucket [lo, hi) with its share of
+# lists, uniform inside a bucket: 2,097,152 lists of chr1-3n.coarse's
+# reads on an H100 (chr1-pbat.coarse's 4,194,304 within 0.02 a bucket);
+# 0.144 empty, a median of 5, 0.019 full
+CHR1_LIST_FILL = ((0, 1, 0.1440), (1, 2, 0.1189), (2, 3, 0.0885),
+                  (3, 4, 0.0692), (4, 5, 0.0557), (5, 8, 0.1178),
+                  (8, 16, 0.1579), (16, 32, 0.1193), (32, 64, 0.0733),
+                  (64, 128, 0.0368), (128, 129, 0.0186))
 OVERFLOW_KEYS = ("probe_overflow", "vote_overflow", "pair_budget_overflow",
                  "probe_tail_overflow", "probe_head_overflow")
 SENTINEL = 0xFFFFFFFF
@@ -446,9 +455,17 @@ def phase1():
     cases.append(minhash_case("fwd", 4096, 128, 16, win_lens))
     cases.append(minhash_case("canon", 4096, 128, 16, read_lens))
 
-    def vote_case(f, n, c, cap, rng=rng):
+    def vote_case(f, n, c, cap, rng=rng, chr1_fill=False):
         ids = rng.integers(0, 600, size=(f, n, c)).astype(np.int64)
         fill = rng.integers(0, c + 1, size=(f, n, 1))
+        if chr1_fill:
+            # lists as the chr1 cells' probe fills them: window ids from
+            # 2**21, each read's own window in every list that has any
+            lo, hi, share = (np.array(x) for x in zip(*CHR1_LIST_FILL))
+            bucket = rng.choice(len(share), size=(f, n, 1), p=share)
+            fill = rng.integers(lo[bucket], hi[bucket])
+            ids = rng.integers(0, 2**21, size=(f, n, c)).astype(np.int64)
+            ids[:, :, 0] = rng.integers(0, 2**21, size=(1, n))
         ids = np.where(np.arange(c)[None, None, :] < fill, ids, 0xFFFFFFFF)
         cand = torch.from_numpy(np.sort(ids, axis=2)).to(dev)
         # merging F ascending lists of C ids: F*C*log2(F) 64-bit
@@ -464,9 +481,14 @@ def phase1():
     cases.append(vote_case(32, 4096, 16, 8))
     cases.append(vote_case(64, 4096, 16, 8))       # 4F under --undirectional
     cases.append(vote_case(32, 4096, 64, 32))
-    # 4,096 ids, the shared-memory side of the switch (a generator of its
-    # own, as for the flagship-like pairs: the older cases keep their data)
+    # 4,096 ids, the wide side of the switch (a generator of its own, as
+    # for the flagship-like pairs: the older cases keep their data)
     cases.append(vote_case(32, 1024, 128, 32, np.random.default_rng(11)))
+    # chr1 caps at the cells' batch, lists filled as the probe fills them
+    # there: F 32 (chr1-3n.coarse) and F 64 (chr1-pbat.coarse)
+    for f in (32, 64):
+        cases.append(vote_case(f, 4096, 128, 32, np.random.default_rng(f),
+                               chr1_fill=True))
 
     p, wr, wa, n_shifts = 16384, 4, 10, 160
     r32 = lambda *s: torch.from_numpy(rng.integers(

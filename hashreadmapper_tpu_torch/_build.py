@@ -56,8 +56,9 @@ _SIGNATURES = {
     # bases, lengths, hash_ids, out, valid, n, maxlen, k, f, mode,
     # collapse, finish, mirror, stream
     "hrm_minhash_stage": [_P] * 5 + [_I] * 8 + [_P],
-    # cand, ids, counts, num_kept, f, n, c, min_hits, out_cap, stream
-    "hrm_vote": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # cand, ids, counts, num_kept, scratch, tally, f, n, c, min_hits,
+    # out_cap, stream
+    "hrm_vote": [_P] * 6 + [_I] * 5 + [_P],
     # a_hi, a_lo, r_hi, r_lo, mask, bounds, out, p, wa, wr, n_shifts, stream
     "hrm_shd_best": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # read_at, read_bytes, eff_len, seg_len, ref_t, ref_bytes, ref_len,

@@ -273,7 +273,8 @@ def vote_candidates(cand: torch.Tensor, min_table_hits: int, out_cap: int):
 
 
 def vote_candidates_fnc_auto(cand_fnc: torch.Tensor, min_table_hits: int,
-                             out_cap: int):
+                             out_cap: int, tally=None):
     """The vote over the probe's [F, N, C] output: the CUDA kernel for a
-    CUDA tensor, the plain version for a CPU tensor."""
-    return vote_candidates_fnc(cand_fnc, min_table_hits, out_cap)
+    CUDA tensor, the plain version for a CPU tensor (tally: see
+    vote_candidates_fnc)."""
+    return vote_candidates_fnc(cand_fnc, min_table_hits, out_cap, tally)

@@ -38,7 +38,8 @@ from ..align import sw
 from ..config import ProgramOptions
 from ..index import minhash_index as mi
 from ..io.genome import Genome
-from ..ops import bandtb, encode, minhash, pairs_kernel, shd, swdev
+from ..ops import (bandtb, encode, minhash, pairs_kernel, shd, swdev,
+                   vote_kernel)
 from ..ops.shd_kernel import pack_genome_planes
 from ..parallel.segments import segment_base_span
 from ..utils import tracing
@@ -305,6 +306,10 @@ class CoarseMapper:
         # the key drops they were captured with
         self._steps = {}
         self._steps_dropped = None
+        # the vote's tally word (ops/vote_kernel.py), which every batch
+        # step adds to; map_reads reads it only while the tracer is on
+        self._vote_tally = torch.zeros(1, dtype=torch.int64,
+                                       device=self.device)
         self.index = None
         with tracing.span("index.build"):
             with tracing.span("index.table"):
@@ -494,7 +499,7 @@ class CoarseMapper:
             cand = torch.cat([cand, cand_u], dim=0)            # [4F, N, C]
             stats = torch.cat([stats, stats_u[None]])
         ids, _, num_kept = mi.vote_candidates_fnc_auto(
-            cand, opts.min_table_hits, kcap)
+            cand, opts.min_table_hits, kcap, self._vote_tally)
         packed, ori, overflow = coarse_pairs_best(
             ids, read_bases, read_len, opts, t.genome_hi, t.genome_lo,
             t.win_pos, t.win_chrom, t.chrom_offset, t.chrom_len, stats,
@@ -760,6 +765,8 @@ class CoarseMapper:
             # parity mode: the read-side key drops of this read set, unless
             # a chunked caller has set them from the whole set already
             self.ensure_read_drops(read_bases, read_lengths)
+            if sp is not None:
+                self._vote_tally.zero_()
             packed, overflow, bundle = self.map_reads_packed(
                 read_bases, read_lengths, with_scores, collect_candidates)
             if sp is not None:
@@ -770,6 +777,10 @@ class CoarseMapper:
                 sp.attrs["mirrored"] = int(np.count_nonzero(
                     mapped & (packed[:, 6] == 1)))
                 sp.attrs.update(zip(OVERFLOW_KEYS, overflow.tolist()))
+                # the vote's wide path (F*C above 2,048): ids present, and
+                # reads with more than 1,024 left to sort after its sift
+                sp.attrs["vote_ids"], sp.attrs["vote_wide_rows"] = \
+                    vote_kernel.tally_counts(self._vote_tally)
         results = CoarseResults(
             orientation=packed[:, 0].astype(np.int8),
             hamming=packed[:, 1].astype(np.int32),

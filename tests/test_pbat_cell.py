@@ -10,7 +10,9 @@ import pytest
 import torch
 
 from hashreadmapper_tpu_torch import cli
+from hashreadmapper_tpu_torch.index import minhash_index as mi
 from hashreadmapper_tpu_torch.io.genome import Genome
+from hashreadmapper_tpu_torch.ops import vote_kernel
 from hashreadmapper_tpu_torch.pipeline.engine import (OVERFLOW_KEYS,
                                                       CoarseMapper)
 from hashreadmapper_tpu_torch.utils import tracing
@@ -162,6 +164,44 @@ def test_map_reads_span_counts_mapped_mirrored_and_overflow(chroms, tracer):
     assert {k: span.attrs[k] for k in OVERFLOW_KEYS} == {
         k: res.stats[k] for k in OVERFLOW_KEYS}
     assert sum(span.attrs[k] for k in OVERFLOW_KEYS) > 0
+
+
+def test_map_reads_span_counts_the_votes_ids(chroms, mapper, monkeypatch):
+    """vote_ids and vote_wide_rows (F 64 lists of 128: the vote's wide
+    path) equal counts over the probe's output, the vote's input, with
+    the tracer on; with it off no span and nothing read back."""
+    seen = []
+    vote, counts = mi.vote_candidates_fnc_auto, vote_kernel.tally_counts
+    reads_back = []
+
+    def counting_vote(cand, *args):
+        seen.append((cand != vote_kernel.SENTINEL).sum(dim=(0, 2)))
+        return vote(cand, *args)
+
+    def counted_read(tally):
+        reads_back.append(tally)
+        return counts(tally)
+    monkeypatch.setattr(mi, "vote_candidates_fnc_auto", counting_vote)
+    monkeypatch.setattr(vote_kernel, "tally_counts", counted_read)
+    bases, lengths, _ = _reads(chroms, 700)
+    tracing.reset()
+    mapper.map_reads(_padded(bases), lengths)
+    assert tracing.snapshot() == [] and reads_back == [] and seen
+    seen.clear()
+    tracing.enable()
+    try:
+        mapper.map_reads(_padded(bases), lengths)
+        (span,) = [s for s in tracing.snapshot()
+                   if s.name == "engine.map_reads"]
+    finally:
+        tracing.disable()
+        tracing.reset()
+    k = torch.cat(seen)
+    assert len(reads_back) == 1 and k.shape == (1024,)
+    assert span.attrs["vote_ids"] == int(k.sum()) > 0
+    # a read is sorted in tiles only past TILE ids: none has that many
+    assert int(k.max()) <= vote_kernel.TILE
+    assert span.attrs["vote_wide_rows"] == 0
 
 
 def test_benchmark_names_the_cell_and_its_metrics():

@@ -100,12 +100,17 @@ def test_signature_stage_kernel_equals_plain(dev, mode, collapse, mirror, k):
 
 
 @pytest.mark.parametrize("f,c,min_hits,cap", [(4, 8, 1, 4), (5, 3, 2, 8),
-                                              (32, 16, 4, 8), (7, 1, 1, 2)])
+                                              (32, 16, 4, 8), (7, 1, 1, 2),
+                                              (32, 128, 4, 32),
+                                              (64, 128, 4, 32)])
 def test_vote_kernel_equals_plain(dev, f, c, min_hits, cap):
+    """Sorted lists of ids from a small range (duplicates across and
+    within lists), 0 to 16 ids a list: at C 128 the wide kernel's reads
+    hold up to 16 F ids of 20 values, all of which pass its sift."""
     rng = np.random.default_rng(f * 10 + c)
     n = 257
     ids = rng.integers(0, 20, size=(f, n, c)).astype(np.int64)
-    fill = rng.integers(0, c + 1, size=(f, n, 1))
+    fill = rng.integers(0, min(c, 16) + 1, size=(f, n, 1))
     ids = np.where(np.arange(c)[None, None, :] < fill, ids, 0xFFFFFFFF)
     ids[:, :3] = 0xFFFFFFFF                                  # empty rows
     cand = torch.from_numpy(np.sort(ids, axis=2)).to(dev)
@@ -121,30 +126,52 @@ def test_vote_kernel_equals_plain(dev, f, c, min_hits, cap):
     (1, 1, 5), (2, 16, 33), (4, 16, 1), (8, 16, 257), (16, 16, 31),
     (32, 16, 257), (64, 16, 129), (32, 32, 65), (32, 64, 33),   # E 1 .. 64
     (3, 5, 77), (32, 17, 9), (6, 6, 40), (5, 100, 21),          # padded m
-    (33, 64, 17), (64, 64, 9), (16, 1024, 3)])                  # shared mem
+    (33, 64, 17), (64, 64, 9), (16, 1024, 3), (33, 65, 40),     # wide
+    (32, 128, 1), (32, 128, 4097), (64, 128, 1), (64, 128, 4097)])
 def test_vote_kernel_every_width(dev, f, c, n, order):
     """Every register width E = m_pad / 32 of the warp kernel, F*C that is
-    no power of two, both sides of the 2,048-id switch to the
-    shared-memory kernel, odd N and N = 1, lists sorted and not; a row of
-    equal ids, a row of distinct ids with the top bit set, empty rows."""
+    no power of two, both sides of the 2,048-id switch to the wide
+    kernel (odd C: 8-byte loads), odd N and N = 1, lists sorted and not;
+    a row of equal ids, a row of distinct ids with the top bit set, empty
+    rows; rows of 0 to C ids a list and rows of 0 to 8; the wide kernel's
+    register sort full and one id past it, every slot full, and runs
+    across its tiles."""
     rng = np.random.default_rng(f * 1000 + c)
     ids = rng.integers(0, max(8, f * c // 6), size=(f, n, c)).astype(np.int64)
     fill = rng.integers(0, c + 1, size=(f, n, 1))
+    fill[:, 1::2] = rng.integers(0, min(c, 8) + 1, size=(f, n // 2, 1))
     ids = np.where(np.arange(c)[None, None, :] < fill, ids, 0xFFFFFFFF)
     ids[:, 0] = 0xFFFFFFFF
     if n > 2:
         ids[:, 1] = 7
         ids[:, 2] = np.arange(f * c).reshape(f, c) + 2**31
+    if n > 6:
+        # k ids a read at random slots, from `values` values (runs that
+        # reach min_hits; at 50, runs across the wide kernel's tiles):
+        # k = TILE (the most it sorts in registers) and TILE + 1, every
+        # slot, and 2 * TILE + 1 (three tiles padded to four)
+        for row, k, values in ((3, vk.TILE, vk.TILE // 2),
+                               (4, vk.TILE + 1, vk.TILE // 2),
+                               (5, f * c, f * c // 2),
+                               (6, 2 * vk.TILE + 1, 50)):
+            flat = np.full(f * c, 0xFFFFFFFF, np.int64)
+            k = min(k, f * c)
+            flat[rng.choice(f * c, size=k, replace=False)] = rng.integers(
+                0, max(1, min(k, values)), size=k)
+            ids[:, row] = flat.reshape(f, c)
     if order == "sorted":
         ids = np.sort(ids, axis=2)
     cand = torch.from_numpy(ids).to(dev)
-    for min_hits, cap in ((1, 8), (3, 5), (2, 0)):
+    tally, want_tally = (torch.zeros(1, dtype=torch.int64, device=dev)
+                         for _ in range(2))
+    for min_hits, cap in ((1, 8), (3, 5), (2, 0), (1, 32), (4, 32)):
         got = _launched_once(vk.vote_candidates_fnc,
                              lambda: vk.vote_candidates_fnc(cand, min_hits,
-                                                            cap))
-        want = vk.vote_candidates_fnc_plain(cand, min_hits, cap)
+                                                            cap, tally))
+        want = vk.vote_candidates_fnc_plain(cand, min_hits, cap, want_tally)
         for g, w in zip(got, want):
             assert g.dtype == w.dtype and torch.equal(g, w)
+    assert vk.tally_counts(tally) == vk.tally_counts(want_tally)
     if n > 2:
         kept = vk.vote_candidates_fnc_plain(cand, 1, 8)[2]
         assert kept[:3].tolist() == [0, 1, f * c]

@@ -9,6 +9,7 @@ import torch
 from hashreadmapper_tpu.index import minhash_index as jmi
 from hashreadmapper_tpu.ops import vote_pallas
 from hashreadmapper_tpu_torch.index import minhash_index as mi
+from hashreadmapper_tpu_torch.ops import vote_kernel as vk
 from hashreadmapper_tpu_torch.ops.vote_kernel import (
     vote_candidates_fnc, vote_candidates_fnc_plain)
 
@@ -69,6 +70,40 @@ def test_vote_wrapper_on_cpu_is_plain():
     got = mi.vote_candidates_fnc_auto(cand, 2, 4)
     _check(got, vote_candidates_fnc_plain(cand, 2, 4))
     assert vote_candidates_fnc.launches == before
+
+
+@pytest.mark.parametrize("f,c", [(32, 128), (64, 128), (16, 16)])
+def test_vote_tally_counts_ids_and_tiled_reads(f, c):
+    """The plain vote adds to a tally what the wide kernel adds: every
+    read's non-SENTINEL ids, and the reads it sorts in tiles (more than
+    TILE ids left); nothing where F*C pads to WARP_MERGE or less (the warp
+    kernel's).  Reads of ids seen 4 times each keep them all through the
+    sift at min_table_hits 4; a read of distinct ids keeps them only at 1."""
+    rng = np.random.default_rng(f + c)
+    m = f * c
+    fourfold = [0, 4, vk.TILE, vk.TILE + 4, m, 36]
+    rows = []
+    for k in fourfold:
+        k = min(k, m) // 4 * 4
+        rows.append(np.repeat(rng.integers(0, 2**32 - 1, size=k // 4), 4))
+    distinct = rng.choice(2**32 - 1, size=min(vk.TILE + 1, m),
+                          replace=False)
+    rows.append(distinct)
+    cand = np.full((len(rows), m), SENT, np.uint32)
+    for r, ids in enumerate(rows):
+        cand[r, rng.choice(m, size=len(ids), replace=False)] = ids
+    cand = torch.from_numpy(cand.reshape(len(rows), f, c).transpose(
+        1, 0, 2).astype(np.int64))
+    wide = vk._m_pad(m) > vk.WARP_MERGE
+    ks = [len(ids) for ids in rows]
+    for hits, tiled in ((1, sum(k > vk.TILE for k in ks)),
+                        (4, sum(len(ids) > vk.TILE for ids in rows[:-1]))):
+        tally = torch.zeros(1, dtype=torch.int64)
+        want = vote_candidates_fnc_plain(cand, hits, 4)
+        for _ in range(2):             # a tally adds up over calls
+            _check(vote_candidates_fnc_plain(cand, hits, 4, tally), want)
+        assert vk.tally_counts(tally) == ((2 * sum(ks), 2 * tiled) if wide
+                                          else (0, 0))
 
 
 def _variant(kind, f, c, n=128):
