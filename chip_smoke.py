@@ -34,8 +34,9 @@ Phase 1  each of the seventeen CUDA kernels (the eight counterparts of
 Phase 2  the flagship 3N run through the port's CLI on an 8 Mbp genome and
          49,152 bisulfite reads, STEP 2 on the card: SAM/VCF checks,
          planted-read mapping and concordance, the eleven launch counts of
-         the path; then the same run with STEP 2 on staged pairs and with
-         host STEP 2 (byte-identical SAM and VCF), the STEP-2 pair counts,
+         the path; then the same run in one chunk (--pipelineChunk 0) and
+         the host oracle (_run_cssw_host, print_to_sam, do_vc) over its
+         coarse rows (byte-identical SAM and VCF), the STEP-2 pair counts,
          launches per batch, and every device launch of one
          map_reads(with_scores=True) counted under torch.profiler.
 Phase 3  the same coarse mapper on the card and on the CPU (plain
@@ -1555,6 +1556,7 @@ def profiled(label, fn, what, n_batches, unit):
 
 def phase2(tmp):
     from hashreadmapper_tpu_torch import cli
+    from hashreadmapper_tpu_torch.pipeline import mapping
     from hashreadmapper_tpu_torch.pipeline.driver import run_pipeline
     rng = np.random.default_rng(2)
     reads, starts, junk, chrom = write_dataset(tmp, rng)
@@ -1568,24 +1570,34 @@ def phase2(tmp):
         f"{res['timers']}, max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} B")
 
-    # the same run with STEP 2 on staged pairs (no pipelining), and with
-    # host STEP 2: byte-identical SAM and VCF
-    for label, extra, step2_device in (
-            ("device STEP 2 on staged pairs", ["--pipelineChunk", "0"], True),
-            ("host STEP 2", [], False)):
-        other = os.path.join(tmp, "out_other")
-        opts, device = cli.options_from_args(argv + extra + ["-o", other])
-        opts.step2_device = step2_device
-        t0 = time.perf_counter()
-        res_other = run_pipeline(opts, device)
-        log(f"phase2 whole run, {label}: {time.perf_counter() - t0:.3f} s, "
-            f"phase timers {res_other['timers']}")
+    # the same run in one chunk, and the host oracle over its coarse rows:
+    # byte-identical SAM and VCF
+    one = os.path.join(tmp, "out_one")
+    opts, device = cli.options_from_args(argv + ["--pipelineChunk", "0",
+                                                 "-o", one])
+    t0 = time.perf_counter()
+    res_one = run_pipeline(opts, device)
+    log(f"phase2 whole run, one chunk: {time.perf_counter() - t0:.3f} s, "
+        f"phase timers {res_one['timers']}")
+    r1, genome = res_one["results"], res_one["genome"]
+    strand = ((r1.bs_strand != 0)
+              & (r1.orientation == mapping.FORWARD)).astype(np.int8)
+    host = os.path.join(tmp, "out_host")
+    t0 = time.perf_counter()
+    aas = mapping._run_cssw_host(
+        genome, genome.reverse_complement(), r1.orientation, r1.position,
+        r1.chromosome_id, res_one["reads"], opts, strand)
+    mapping.print_to_sam(aas, genome, host + ".SAM")
+    mapping.do_vc(aas, genome, host)
+    log(f"phase2 host oracle over the one-chunk run's coarse rows: "
+        f"{time.perf_counter() - t0:.3f} s")
+    for label, other in (("the one-chunk run", one), ("the host oracle",
+                                                      host)):
         for ext in (".SAM", ".VCF"):
             with open(out + ext, "rb") as a, open(other + ext, "rb") as b:
                 if a.read() != b.read():
                     raise AssertionError(f"{ext}: {label} differs")
-        log(f"phase2 SAM and VCF: fused device STEP 2 == {label}, byte for "
-            "byte")
+        log(f"phase2 SAM and VCF: the fused run == {label}, byte for byte")
 
     if not os.path.exists(out + ".VCF"):
         raise AssertionError("no VCF written")

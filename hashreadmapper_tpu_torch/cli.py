@@ -106,8 +106,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="found probes budgeted per read for the compacted "
                         "head gather (0=off; needs --probeTailBudget)")
     p.add_argument("--pipelineChunk", type=int, default=65536,
-                   help="reads per STEP1/STEP2 pipeline chunk (0 = run "
-                        "the phases strictly sequentially)")
+                   help="reads per STEP1/STEP2 pipeline chunk (0 = one "
+                        "chunk of all reads, the phases strictly "
+                        "sequential; a chunk's device STEP-2 bundle is "
+                        "about 138 B a read)")
     p.add_argument("--maxReadLength", type=int, default=160)
     p.add_argument("--regions", type=int, default=0,
                    help="genome-region shards (0=auto; >2 Gbp genomes "

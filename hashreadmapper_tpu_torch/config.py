@@ -105,19 +105,6 @@ class ProgramOptions:
     # mapper); N>0 forces N regions.  Genomes >2 Gbp always route through
     # regions (the int32 staged-gather limit of one mapper).
     num_regions: int = 0
-    # STEP 2 on device: run the striped-SW score passes as a batched device
-    # kernel (ops/swdev.py), host does CIGAR-only finish.  Bit-identical to
-    # the host path; falls back automatically when the native finish library
-    # is unavailable.
-    step2_device: bool = True
-    # Pairs per device dispatch in the STEP-2 score pass (fixed shape to
-    # avoid recompiles; last chunk is padded).
-    step2_pair_chunk: int = 8192
-    # Banded CIGAR traceback on device (ops/bandtb.py) for pairs the all-M
-    # diag certificate does not cover; the native finish then only builds
-    # run-length entries + the =/X rewrite.  Bit-identical to the host
-    # banded DP (tests/test_bandtb.py).  False = host banded DP.
-    step2_device_traceback: bool = True
     # SHD pair compaction: average (read, candidate) pairs per read budgeted
     # for the SHD stage.  At real candidate densities most of the
     # [B, candidates_per_read_cap] grid is padding; compacting valid pairs
@@ -137,11 +124,13 @@ class ProgramOptions:
     # Bit-identical while probe_head_overflow stays 0; a read has at most
     # 2F found probes, so 2F is always overflow-free.
     probe_head_budget_per_read: int = 0
-    # STEP1/STEP2 pipelining: reads are coarse-mapped and fine-aligned in
-    # chunks of this many reads, so STEP 2's host work (CIGAR finish,
-    # rescore, record build) overlaps the next chunk's device coarse
-    # mapping.  0 = off (phases strictly sequential, the reference's
-    # structure).  Results are identical either way (the dropped-keys mask
+    # STEP1/STEP2 pipelining: reads are coarse-mapped, with the fused
+    # device STEP 2, and finished on the host in chunks of this many
+    # reads, so STEP 2's host work (CIGAR finish, rescore, record build)
+    # overlaps the next chunk's device step.  0 = one chunk of all reads
+    # (phases strictly sequential, the reference's structure); a chunk's
+    # STEP-2 bundle is about 138 B a read on the device (1.4 GB at 10 M
+    # reads).  Results are identical at any chunk (the dropped-keys mask
     # is still computed from the full read set).
     step2_pipeline_chunk: int = 65536
 

@@ -28,7 +28,7 @@ import torch
 
 from ..config import ProgramOptions
 from ..io.genome import Genome
-from ..ops import shd
+from ..ops import bandtb, shd
 from ..pipeline.engine import (OVERFLOW_KEYS, SENTINEL, CoarseMapper,
                                CoarseResults, pool_ranges)
 from .sharded import ShardedCoarseMapper
@@ -146,8 +146,6 @@ class RegionShardedMapper:
     table shard of the mesh) the regions keep the binary-search probe: a
     cuckoo table costs more device memory than its CSR index."""
 
-    supports_fused_scores = True
-
     def __init__(self, genome: Genome, opts: ProgramOptions, n_regions: int,
                  devices=None, partition: str = "auto", mesh=None):
         self.opts = opts
@@ -212,7 +210,6 @@ class RegionShardedMapper:
         bundle, each read's pair columns 2i and 2i+1 taken from the region
         that won it (zeros for an unmapped read), as CoarseMapper.map_reads
         returns it."""
-        opts = self.opts
         n = len(read_lengths)
         out = CoarseResults(
             orientation=np.full(n, shd.NONE, dtype=np.int8),
@@ -254,17 +251,14 @@ class RegionShardedMapper:
         out.stats["cuckoo_direct_probe"] = direct
         if not with_scores:
             return out
-        e = max(to.shape[1] for _, to, _ in region_scores)
         scores = np.zeros((10, 2 * n), np.int16)
-        tb_ops = np.zeros((2 * n, e), np.uint8)
+        tb_ops = np.zeros((2 * n, bandtb.FUSED_ENTRIES), np.uint8)
         tb_st = np.zeros(2 * n, np.int8)
         for r_i, (sc, to, ts) in enumerate(region_scores):
             rows = np.nonzero(win_region == r_i)[0]
             cols = np.repeat(2 * rows, 2)
             cols[1::2] += 1
             scores[:, cols] = sc[:, cols]
-            tb_ops[cols, :to.shape[1]] = to[cols]
+            tb_ops[cols] = to[cols]
             tb_st[cols] = ts[cols]
-        if opts.step2_device_traceback:
-            return out, (scores, tb_ops, tb_st)
-        return out, scores
+        return out, (scores, tb_ops, tb_st)

@@ -139,15 +139,13 @@ class ShardedCoarseMapper:
     """The window index split over the table axis of `mesh`, and read
     batches split over its data axis; the contract of CoarseMapper
     (map_reads, map_reads_packed, stage_reads_device, map_staged,
-    fetch_results, the key-drop hooks, segments), so the driver,
-    mapping.run_cssw and RegionShardedMapper drive it unchanged, and the
-    JAX ShardedCoarseMapper's map_batch and _map_reads_device(_scored).
+    fetch_results, the key-drop hooks, segments), so the driver and
+    RegionShardedMapper drive it unchanged, and the JAX
+    ShardedCoarseMapper's map_batch and _map_reads_device(_scored).
     `device` is the mesh's first device.  plan: for each data shard,
     ((device, table shards), ...), the cards its probes run on (each
     table shard once, on a device of its column); by default its table
     shards grouped by card."""
-
-    supports_fused_scores = True
 
     def __init__(self, genome: Genome, opts: ProgramOptions, mesh: Mesh,
                  segments=None, build_direct_probe: bool = True, *,
@@ -679,16 +677,5 @@ class ShardedCoarseMapper:
         self.ensure_read_drops(read_bases, read_lengths)
         packed, overflow, bundle = self.map_reads_packed(
             read_bases, read_lengths, with_scores)
-        results = CoarseResults(
-            orientation=packed[:, 0].astype(np.int8),
-            hamming=packed[:, 1].astype(np.int32),
-            shift=packed[:, 2].astype(np.int32),
-            chromosome_id=packed[:, 3].astype(np.int32),
-            position=packed[:, 4].astype(np.int32),
-            global_window_id=packed[:, 5].astype(np.uint32),
-            stats=self.stats(overflow),
-            bs_strand=packed[:, 6].astype(np.int8))
-        if not with_scores:
-            return results
-        return results, (bundle if self.opts.step2_device_traceback
-                         else bundle[0])
+        results = CoarseResults.from_packed(packed, self.stats(overflow))
+        return (results, bundle) if with_scores else results

@@ -7,11 +7,11 @@ on a ShardedCoarseMapper over a D x T mesh (distinct cards for a CUDA
 device, every position the CPU for the CPU); with --regions N, or for a
 genome of SINGLE_MAPPER_BASE_CAP bases or more, on a RegionShardedMapper
 (one mapper a region, all on that device or all over the mesh).
-STEP 2 runs there too (mapping.run_cssw: score passes and banded traceback
-fused into the coarse step per chunk when the reads are pipelined, in
-staged chunks otherwise), with the native CIGAR finish, rescore and
-records on the host.  opts.step2_device = False (set in code; no flag) takes the serial
-host path instead.  STEP 3 and the SAM writer are the native bulk
+With --mappertype sw (the default) STEP 2 runs there too: the coarse step
+scores and traces back every read's pairs in --pipelineChunk chunks of
+reads (all reads in one chunk at 0), and mapping.run_cssw finishes each
+chunk's bundle on the host (native CIGAR finish, rescore, records) while
+the next chunk maps.  STEP 3 and the SAM writer are the native bulk
 emitters.
 """
 
@@ -32,7 +32,7 @@ from ..parallel.region_sharded import (SINGLE_MAPPER_BASE_CAP,
 from ..parallel.sharded import ShardedCoarseMapper, make_mesh
 from ..utils import tracing
 from ..utils.timers import PhaseTimers
-from . import mapping, mapping_edlib
+from . import mapping_edlib
 from .engine import CoarseMapper, CoarseResults
 from .mapping import run_cssw
 from .records import MappingRecords, emit_sam, emit_vcf
@@ -48,14 +48,13 @@ def _step2_chunk(parent, *args, **kwargs):
 def _pipelined_sw(mapper, bases: np.ndarray,
                   reads: ReadStorage, genome: Genome, genome_rc: Genome,
                   opts: ProgramOptions):
-    """Chunked coarse map on the device + STEP 2 on two workers: the
-    workers finish chunk i while the main thread maps chunk i+1.  With
-    device STEP 2 the coarse step also scores and traces back each chunk
-    (map_reads with_scores), so the workers only run host code.  `mapper`
-    is a CoarseMapper or a RegionShardedMapper.  Returns (results,
-    MappingRecords, or AlignerArguments with global read ids)."""
+    """Chunked coarse map with the fused STEP 2 on the device (map_reads
+    with_scores) + STEP 2's host half on two workers: the workers finish
+    chunk i while the main thread maps chunk i+1.  opts.step2_pipeline_chunk
+    reads a chunk, all of them in one chunk at 0.  `mapper` is any of the
+    three mappers.  Returns (results, MappingRecords)."""
     n = reads.num_reads
-    chunk = opts.step2_pipeline_chunk
+    chunk = opts.step2_pipeline_chunk or max(n, 1)
     # the parity-mode key-drop rule is a whole-dataset property; it must
     # precede the per-chunk mapping (regions apply no drop)
     if hasattr(mapper, "ensure_read_drops"):
@@ -64,36 +63,23 @@ def _pipelined_sw(mapper, bases: np.ndarray,
                                 enabled=opts.show_progress)
     res_parts, futs = [], []
     with ThreadPoolExecutor(max_workers=2, thread_name_prefix="step2") as ex:
-        for c0 in range(0, n, chunk):
+        # one chunk of no reads when there are none
+        for c0 in range(0, max(n, 1), chunk):
             c1 = min(c0 + chunk, n)
             with tracing.span("driver.chunk", chunk=c0, reads=c1 - c0):
-                scores = None
-                if opts.step2_device:
-                    res, scores = mapper.map_reads(
-                        bases[c0:c1], reads.lengths[c0:c1], with_scores=True)
-                else:
-                    res = mapper.map_reads(bases[c0:c1], reads.lengths[c0:c1])
+                res, bundle = mapper.map_reads(
+                    bases[c0:c1], reads.lengths[c0:c1], with_scores=True)
                 res_parts.append(res)
-                futs.append((c0, c1, ex.submit(
+                futs.append((c1 - c0, ex.submit(
                     _step2_chunk, tracing.current(), genome, genome_rc,
                     res.orientation, res.position, res.chromosome_id,
-                    reads.slice_rows(c0, c1), opts, res.bs_strand, scores,
-                    device=mapper.device)))
+                    reads.slice_rows(c0, c1), opts, res.bs_strand, bundle)))
         parts = []
         with tracing.span("driver.wait"):
-            for c0, c1, fut in futs:
-                parts.append((c0, fut.result()))
-                progress.add(c1 - c0)
-    if all(isinstance(p, MappingRecords) for _, p in parts):
-        mappingout = MappingRecords.concat([p for _, p in parts])
-    else:
-        # read ids in a chunk's AlignerArguments are chunk-local
-        mappingout = []
-        for c0, p in parts:
-            aas = p.to_aas() if isinstance(p, MappingRecords) else p
-            for aa in aas:
-                aa.read_id += c0
-            mappingout.extend(aas)
+            for k, fut in futs:
+                parts.append(fut.result())
+                progress.add(k)
+    mappingout = MappingRecords.concat(parts)
     if opts.show_progress:
         progress.finish()
     stats: Dict[str, int] = {}
@@ -184,12 +170,9 @@ def run_pipeline(opts: ProgramOptions, device,
                 print(f"window index: {mapper.index.memory_bytes()} bytes, "
                       f"{mapper.table.num_windows} windows")
 
-        pipelined = (opts.mapper_type == MapperType.SW
-                     and opts.step2_pipeline_chunk > 0
-                     and reads.num_reads > opts.step2_pipeline_chunk)
         bases = reads.bases_matrix(opts.max_read_length).astype(np.int8)
         with timers.phase("process genome"):
-            if pipelined:
+            if opts.mapper_type == MapperType.SW:
                 results, mappingout = _pipelined_sw(
                     mapper, bases, reads, genome, genome_rc, opts)
             else:
@@ -207,16 +190,8 @@ def run_pipeline(opts: ProgramOptions, device,
                     "reads": reads, "genome": genome, "mapper": mapper}
         sam_path = opts.outputfile + ".SAM"
         if opts.mapper_type == MapperType.SW:
-            if not pipelined:
-                mappingout = run_cssw(
-                    genome, genome_rc, results.orientation, results.position,
-                    results.chromosome_id, reads, opts, results.bs_strand,
-                    device=mapper.device)
-            if isinstance(mappingout, MappingRecords):
-                sam_stats = emit_sam(mappingout, genome, sam_path,
-                                     threads=max(1, opts.threads))
-            else:
-                sam_stats = mapping.print_to_sam(mappingout, genome, sam_path)
+            sam_stats = emit_sam(mappingout, genome, sam_path,
+                                 threads=max(1, opts.threads))
         else:
             mappingout = mapping_edlib.run_edlib(
                 genome, genome_rc, results.orientation, results.position,
@@ -227,12 +202,8 @@ def run_pipeline(opts: ProgramOptions, device,
         print(f"unmapped reads: {sam_stats['unmapped']}")
 
     with timers.phase("process variant calling"):
-        if opts.mapper_type != MapperType.SW:
-            vcf_path = None
-        elif isinstance(mappingout, MappingRecords):
-            vcf_path = emit_vcf(mappingout, genome, opts.outputfile)
-        else:
-            vcf_path = mapping.do_vc(mappingout, genome, opts.outputfile)
+        vcf_path = (emit_vcf(mappingout, genome, opts.outputfile)
+                    if opts.mapper_type == MapperType.SW else None)
 
     timers.print_all()
     return {"results": results, "mappingout": mappingout,

@@ -21,8 +21,9 @@ dispatch units.  Over a staged read pool it runs through
 pipeline/graphs.py: on a CUDA device one replay of a captured CUDA graph
 a batch, on the CPU the same step eagerly on the same static buffers;
 each batch's outputs are copied into the pool's results on the device
-(_map_reads_device, _map_reads_device_scored, map_pool_scanned) before
-the next batch runs.
+(_pool_device, behind map_staged and the JAX names _map_reads_device,
+_map_reads_device_scored and map_pool_scanned) before the next batch
+runs.
 """
 
 from __future__ import annotations
@@ -78,6 +79,18 @@ class CoarseResults:
     # the full-width window ordinal of the region-sharded mapper (a genome
     # of 2**31 bases or more has ordinals beyond uint32); None otherwise
     global_window_id64: Optional[np.ndarray] = None
+
+    @classmethod
+    def from_packed(cls, packed: np.ndarray,
+                    stats: Dict[str, int]) -> "CoarseResults":
+        """The results of [N, 7] rows as _map_batch packs them."""
+        return cls(orientation=packed[:, 0].astype(np.int8),
+                   hamming=packed[:, 1].astype(np.int32),
+                   shift=packed[:, 2].astype(np.int32),
+                   chromosome_id=packed[:, 3].astype(np.int32),
+                   position=packed[:, 4].astype(np.int32),
+                   global_window_id=packed[:, 5].astype(np.uint32),
+                   stats=stats, bs_strand=packed[:, 6].astype(np.int8))
 
 
 def staged_spans(genome: Genome, segments, opts: Optional[ProgramOptions]):
@@ -215,8 +228,7 @@ def fused_step2_scores(opts: ProgramOptions, chrom_offset, chrom_len,
     The collapse is C->T, or G->A for a read whose packed strand is 1 in
     FORWARD orientation (a PBAT read under opts.undirectional).
     Returns (scores [10, 2B] int16, tb_ops [2B, 48] uint8, tb_status
-    [2B] int8); without opts.step2_device_traceback the traceback is
-    skipped and tb_ops is [2B, 1] zeros."""
+    [2B] int8)."""
     ws = opts.window_size
     b, lq = read_bases.shape
     dev = read_bases.device
@@ -248,12 +260,8 @@ def fused_step2_scores(opts: ProgramOptions, chrom_offset, chrom_len,
         pair_q_t, rl32.repeat_interleave(2),
         pair_ref_t, wl.repeat_interleave(2),
         (rl32 // 2).clamp(min=15).repeat_interleave(2), ws)
-    if opts.step2_device_traceback:
-        tb_ops, tb_status = bandtb.fused_traceback_t(pair_q_t, pair_ref_t,
-                                                     scores)
-    else:
-        tb_ops = torch.zeros((2 * b, 1), dtype=torch.uint8, device=dev)
-        tb_status = torch.zeros(2 * b, dtype=torch.int8, device=dev)
+    tb_ops, tb_status = bandtb.fused_traceback_t(pair_q_t, pair_ref_t,
+                                                 scores)
     return scores.to(torch.int16), tb_ops, tb_status
 
 
@@ -273,8 +281,6 @@ class CoarseMapper:
     probe (no cuckoo table), for several regions sharing one device.
     build_index=False stages the genome and the window geometry only (the
     table-sharded mapper, parallel/sharded.py, builds its own shards)."""
-
-    supports_fused_scores = True
 
     def __init__(self, genome: Genome, opts: ProgramOptions, device,
                  sig_batch: int = 4096, load_index_from: str = "",
@@ -517,7 +523,7 @@ class CoarseMapper:
         """The eager batch step: _map_batch's (packed, overflow[, ids,
         ori]), then with_scores the fused STEP 2 of the same batch
         (scores, tb_ops, tb_status): the JAX engine's _map_batch_impl and
-        _map_batch_scored_at_impl.  A CapturedStep captures and replays
+        its scored counterpart.  A CapturedStep captures and replays
         it; it stays callable as it is."""
         out = self._map_batch(read_bases, read_len, read_valid,
                               collect_candidates)
@@ -560,14 +566,6 @@ class CoarseMapper:
         sl = slice(start, start + bsz)
         return self._run_step(all_bases[sl], all_lens[sl], all_valid[sl],
                               False, collect_candidates)
-
-    def _map_batch_scored_at(self, all_bases, all_lens, all_valid,
-                             start: int, bsz: int):
-        """_map_batch_at with the fused STEP 2 in the same step: the static
-        (packed, overflow, scores [10, 2 bsz], tb_ops, tb_status)."""
-        sl = slice(start, start + bsz)
-        return self._run_step(all_bases[sl], all_lens[sl], all_valid[sl],
-                              True, False)
 
     def _pool_device(self, all_bases, all_lens, all_valid, n_pad: int,
                      bsz: int, with_scores: bool, collect_candidates: bool):
@@ -746,7 +744,8 @@ class CoarseMapper:
                                for i in range(3))
             else:
                 bundle = (np.zeros((10, 0), np.int16),
-                          np.zeros((0, 1), np.uint8), np.zeros(0, np.int8))
+                          np.zeros((0, bandtb.FUSED_ENTRIES), np.uint8),
+                          np.zeros(0, np.int8))
         return packed, overflow, bundle
 
     def map_reads(self, read_bases: np.ndarray, read_lengths: np.ndarray,
@@ -755,8 +754,7 @@ class CoarseMapper:
 
         with_scores: also run the fused STEP 2 per batch and return
         (results, (scores [10, 2N] int16, tb_ops [2N, 48] uint8,
-        tb_status [2N] int8)), or (results, scores) when
-        opts.step2_device_traceback is False.  collect_candidates: also
+        tb_status [2N] int8)).  collect_candidates: also
         set last_candidates = (ids [N, K] uint32, SENTINEL where empty;
         ori [N, K] int8), every read's voted candidate windows and the SHD
         orientation of each (eval/window_stats.py reads them)."""
@@ -781,16 +779,5 @@ class CoarseMapper:
                 # reads with more than 1,024 left to sort after its sift
                 sp.attrs["vote_ids"], sp.attrs["vote_wide_rows"] = \
                     vote_kernel.tally_counts(self._vote_tally)
-        results = CoarseResults(
-            orientation=packed[:, 0].astype(np.int8),
-            hamming=packed[:, 1].astype(np.int32),
-            shift=packed[:, 2].astype(np.int32),
-            chromosome_id=packed[:, 3].astype(np.int32),
-            position=packed[:, 4].astype(np.int32),
-            global_window_id=packed[:, 5].astype(np.uint32),
-            stats=self.stats(overflow),
-            bs_strand=packed[:, 6].astype(np.int8))
-        if not with_scores:
-            return results
-        return results, (bundle if self.opts.step2_device_traceback
-                         else bundle[0])
+        results = CoarseResults.from_packed(packed, self.stats(overflow))
+        return (results, bundle) if with_scores else results

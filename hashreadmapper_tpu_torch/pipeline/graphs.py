@@ -1,6 +1,6 @@
 """Captured CUDA graphs of the batch steps (the port's counterpart of the
-JAX engine's compiled dispatch units: engine._map_batch_at_impl,
-_map_batch_scored_at_impl, _map_pool_scan_impl and
+JAX engine's compiled dispatch units: engine._map_batch_at_impl and its
+scored counterpart, _map_pool_scan_impl and
 window_stream._window_batch_impl, one jax.jit program a batch).
 
 PyTorch runs eagerly, so a read batch of the coarse step with the fused
@@ -62,8 +62,7 @@ STEP_OPTIONS = ("kmer_length", "min_table_hits", "probe_cap",
                 "candidates_per_read_cap", "shd_pairs_per_read_budget",
                 "probe_tail_budget_per_read", "probe_head_budget_per_read",
                 "window_size", "max_read_length", "max_hamming_percent",
-                "max_results_per_map", "three_n_seeding", "undirectional",
-                "step2_device_traceback")
+                "max_results_per_map", "three_n_seeding", "undirectional")
 
 
 def options_key(opts) -> tuple:

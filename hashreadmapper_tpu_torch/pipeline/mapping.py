@@ -19,19 +19,19 @@ of the QUERY, the "shenanigan" in ssw_cpp.cpp:349-351), the RC window slice,
 the 82-base rescoring horizon with negative bases_left arithmetic, and the
 @PG header line missing its newline.
 
-The host half (AlignerArguments, the serial host path _run_cssw_host, the
-rescore, the records assembly and the SAM/VCF writers) is a copy of the
-JAX package's.  The device half is the port's own: the 3N pairs of every
-mapped read (query and reverse-complement query against the read's 3N
-window; G->A instead of C->T for a PBAT read in FORWARD orientation) go
-through the striped-SW score passes (ops/swdev.py) and the banded
-traceback (ops/bandtb.py) on the torch device, either in the coarse step
-(pre_scores, engine.fused_step2_scores) or here in chunks of staged
-pairs, then through the native CIGAR finish and the records assembly.
+STEP 2 has one form in the program: the coarse step scores and traces
+back the 3N pairs of every read (query and reverse-complement query
+against the read's 3N window; G->A instead of C->T for a PBAT read in
+FORWARD orientation) on the torch device (engine.fused_step2_scores),
+and run_cssw turns that bundle into MappingRecords, the native bulk
+SAM/VCF emitters' input: the native CIGAR finish (its banded DP for
+every pair whose walk overflowed its entry budget), the rescore and the
+records assembly on the host.  It needs the native library and raises
+without it.
 
-The device path returns MappingRecords (the native bulk SAM/VCF
-emitters' input), so it needs the native library; it raises without it
-instead of falling back to the host path.
+AlignerArguments, the serial host path _run_cssw_host, rescore_alignment,
+print_to_sam and do_vc are copies of the JAX package's host code: the
+oracle the tests hold run_cssw's records to.
 """
 
 from __future__ import annotations
@@ -39,7 +39,6 @@ from __future__ import annotations
 from typing import List, Optional
 
 import numpy as np
-import torch
 
 from .. import native
 from ..align import sw
@@ -48,7 +47,7 @@ from ..io.genome import Genome
 from ..io.readstore import ReadStorage
 from ..io.vcf import MAP_QUALITY_THRESHOLD, VariantHandler, parse_cigar
 from ..cpu import oracle
-from ..ops import bandtb, swdev
+from ..ops import swdev
 from ..utils import tracing
 from .records import MappingRecords
 
@@ -255,8 +254,6 @@ def rescore_alignment(aa: AlignerArguments, h: int) -> None:
     aa.num_conversions[h] = num_conversions
 
 
-TB_CHUNK = 8192        # pairs per device traceback call (bounds the
-                       # [P, LQ, 128] int16 directions to ~268 MB)
 CIGAR_STRIDE = 1024    # bytes per pair in the native finish's raw buffer
 _B4 = np.frombuffer(b"ACGT", dtype=np.uint8)
 _B5 = np.frombuffer(b"ACGTN", dtype=np.uint8)
@@ -276,49 +273,30 @@ def records_supported() -> bool:
 def run_cssw(genome: Genome, genome_rc: Genome, orientation: np.ndarray,
              position: np.ndarray, chromosome_id: np.ndarray,
              reads: ReadStorage, opts: ProgramOptions,
-             bs_strand: Optional[np.ndarray] = None, pre_scores=None, *,
-             device):
-    """The CSSW mapping stage over all reads (mapping.run_cssw).
-
-    With opts.step2_device (the default) the fine alignment runs on
-    `device` and the result is MappingRecords; pre_scores is the fused
-    coarse step's bundle for these reads (CoarseMapper.map_reads
-    with_scores).  Otherwise the serial host path runs and returns
-    AlignerArguments.  Callers accept either, as with the JAX package."""
-    if bs_strand is None:
-        bs_strand = np.zeros(len(orientation), dtype=np.int8)
+             bs_strand: np.ndarray, bundle) -> MappingRecords:
+    """The CSSW mapping stage over all reads (mapping.run_cssw): bundle
+    is the fused coarse step's (scores [10, 2n], tb_ops [2n, E],
+    tb_status [2n]) for these reads (map_reads with_scores); returns
+    MappingRecords."""
+    if not records_supported():
+        raise RuntimeError(
+            "device STEP 2 needs the native library's CIGAR finish, "
+            "rescore and emitters")
     # the mirrored (G->A) treatment applies only to PBAT reads in FORWARD
     # orientation (mapping.run_cssw)
     bs_strand = ((np.asarray(bs_strand) != 0)
                  & (np.asarray(orientation) == FORWARD)).astype(np.int8)
-    if opts.step2_device and reads.num_reads > 0:
-        if not records_supported():
-            raise RuntimeError(
-                "device STEP 2 needs the native library's CIGAR finish, "
-                "rescore and emitters; set opts.step2_device = False for "
-                "the host path")
-        out = _run_cssw_device(genome, genome_rc, orientation, position,
-                               chromosome_id, reads, opts, bs_strand,
-                               pre_scores, device)
-    else:
-        out = _run_cssw_host(genome, genome_rc, orientation, position,
-                                    chromosome_id, reads, opts, bs_strand)
+    out = _run_cssw_device(genome, genome_rc, orientation, position,
+                           chromosome_id, reads, opts, bs_strand, bundle)
     if opts.use_quality_scores and reads.qualities is not None:
-        if isinstance(out, MappingRecords):
-            qm = np.zeros((out.n, out.lq), np.uint8)
-            for r in range(out.n):
-                q = reads.get_quality_str(r)
-                if orientation[r] == REVERSE_COMPLEMENT:
-                    q = q[::-1]
-                b = np.frombuffer(q.encode("latin1"), np.uint8)
-                qm[r, :len(b)] = b
-            out.qual = qm
-        else:
-            for aa in out:
-                q = reads.get_quality_str(aa.read_id)
-                aa.qual = (q[::-1]
-                           if orientation[aa.read_id] == REVERSE_COMPLEMENT
-                           else q)
+        qm = np.zeros((out.n, out.lq), np.uint8)
+        for r in range(out.n):
+            q = reads.get_quality_str(r)
+            if orientation[r] == REVERSE_COMPLEMENT:
+                q = q[::-1]
+            b = np.frombuffer(q.encode("latin1"), np.uint8)
+            qm[r, :len(b)] = b
+        out.qual = qm
     return out
 
 
@@ -348,11 +326,10 @@ def _windows(genome, genome_rc, position, chromosome_id, ws):
 
 
 def _run_cssw_device(genome, genome_rc, orientation, position, chromosome_id,
-                     reads, opts, bs_strand, pre_scores, device
-                     ) -> MappingRecords:
+                     reads, opts, bs_strand, bundle) -> MappingRecords:
     """mapping._run_cssw_device in records mode: pair prep on the host,
-    score passes and traceback on `device` (fused bundle or chunks here),
-    native finish and the records assembly on the host."""
+    the device's scores and traceback from the fused bundle, native
+    finish and the records assembly on the host."""
     with tracing.span("step2.prep"):
         n = reads.num_reads
         lens = reads.lengths.astype(np.int64)
@@ -405,33 +382,15 @@ def _run_cssw_device(genome, genome_rc, orientation, position, chromosome_id,
         pair_fl = np.repeat(wlens[m], 2).astype(np.int32)
         pair_ml = np.repeat(np.maximum(15, lens[m] // 2), 2).astype(np.int32)
 
-        use_tb = bool(opts.step2_device_traceback)
-        ops_all = np.zeros((P, bandtb.N_ENTRIES), np.int16) if use_tb else None
-        fail_all = np.zeros(P, np.int8) if use_tb else None
-        pre_tb = None
-        if isinstance(pre_scores, tuple):
-            pre_scores, *pre_tb = pre_scores
-        if pre_scores is not None:
-            # the fused coarse step scored every (read x 2) pair: select the
-            # mapped reads' interleaved rows
-            sel = np.empty(P, np.int64)
-            sel[0::2] = 2 * m
-            sel[1::2] = 2 * m + 1
-            dev = swdev.unpack_scores(pre_scores[:, sel].astype(np.int32))
-            if use_tb and pre_tb is not None and pre_tb[0].shape[1] > 1:
-                ops_all = pre_tb[0][sel].astype(np.int16)
-                fail_all = pre_tb[1][sel].astype(np.int8)
-            elif use_tb:
-                _traceback(dev, pair_q, pair_ref, ops_all, fail_all, device)
-        else:
-            # pairs staged to the device in chunks; one fetch of all rows
-            chunk = max(256, int(opts.step2_pair_chunk))
-            sl = lambda a, s: a[s:s + chunk]
-            dev = swdev.ssw_score_collect(torch.cat([swdev.ssw_score_dispatch(
-                sl(pair_q, s), sl(pair_rl, s), sl(pair_ref, s), sl(pair_fl, s),
-                sl(pair_ml, s), device) for s in range(0, P, chunk)], dim=1))
-            if use_tb:
-                _traceback(dev, pair_q, pair_ref, ops_all, fail_all, device)
+        # the fused coarse step scored every (read x 2) pair: select the
+        # mapped reads' interleaved rows
+        scores, tb_ops, tb_status = bundle
+        sel = np.empty(P, np.int64)
+        sel[0::2] = 2 * m
+        sel[1::2] = 2 * m + 1
+        dev = swdev.unpack_scores(scores[:, sel].astype(np.int32))
+        ops_all = tb_ops[sel].astype(np.int16)
+        fail_all = tb_status[sel].astype(np.int8)
 
     # native CIGAR finish (multi-threaded) of every pair that is neither
     # saturated (host rerun in _assemble_records) nor degenerate
@@ -447,14 +406,12 @@ def _run_cssw_device(genome, genome_rc, orientation, position, chromosome_id,
         # pairs whose DP runs on the host: the saturated ones' rerun in
         # _assemble_records, and in the native finish every traceback
         # that the device did not walk (status 2: its entry budget
-        # overflowed; all but the diagonal ones without device traceback)
-        walked = (fail_all[fin] != 2) if use_tb else np.zeros(nf, bool)
+        # overflowed)
+        walked = fail_all[fin] != 2
         counts = dict(pairs=P, host_dp_pairs=int(np.count_nonzero(fb))
                       + int(np.count_nonzero(~dev["diag"][fin] & ~walked)))
     with tracing.span("step2.finish", **counts):
         if nf:
-            tb_kw = (dict(dev_ops=ops_all[fin], dev_fail=fail_all[fin])
-                     if use_tb else {})
             raw_b, clens, _mism, flags = native.ssw_finish_batch(
                 pair_q[fin].tobytes(), np.arange(nf, dtype=np.int64) * lq,
                 pair_rl[fin], pair_ref[fin].tobytes(),
@@ -464,7 +421,7 @@ def _run_cssw_device(genome, genome_rc, orientation, position, chromosome_id,
                 dev["query_end"][fin], dev["flag"][fin],
                 threads=max(1, opts.threads), codes=True,
                 diag=dev["diag"][fin], raw=True, cigar_stride=CIGAR_STRIDE,
-                **tb_kw)
+                dev_ops=ops_all[fin], dev_fail=fail_all[fin])
             cl_all[fin] = clens
             flags_all[fin] = flags
             raw_chunks.append((fin, raw_b, clens))
@@ -474,20 +431,6 @@ def _run_cssw_device(genome, genome_rc, orientation, position, chromosome_id,
             lens32, wlens, win, win_rc, q_ascii, rcq_ascii, pair_q, pair_ref,
             pair_rl, pair_fl, pair_ml, dev, fb, dg, cl_all, flags_all,
             raw_chunks, CIGAR_STRIDE, bs_strand, und, opts)
-
-
-def _traceback(dev, pair_q, pair_ref, ops_all, fail_all, device):
-    """Device banded traceback of the pairs that need the DP (not
-    diag-certified, not saturated, not degenerate), TB_CHUNK pairs per
-    dispatch; fills ops_all / fail_all."""
-    idx = np.nonzero(~dev["diag"] & ~dev["host_fallback"]
-                     & ~dev["degenerate"])[0]
-    for c in range(0, len(idx), TB_CHUNK):
-        sub = idx[c:c + TB_CHUNK]
-        ops_all[sub], fail_all[sub] = bandtb.banded_traceback_batch(
-            pair_q[sub], dev["query_begin"][sub], dev["query_end"][sub],
-            pair_ref[sub], dev["ref_begin"][sub], dev["ref_end"][sub],
-            dev["score1"][sub], device)
 
 
 def _run_cssw_host(genome: Genome, genome_rc: Genome,

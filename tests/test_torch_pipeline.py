@@ -128,21 +128,19 @@ def jax_runs(tmp_path_factory):
     return run
 
 
-@pytest.mark.parametrize("chunk,step2", [
-    pytest.param(0, "device", id="0"), pytest.param(100, "device", id="100"),
-    pytest.param(0, "host", id="host-0"),
-    pytest.param(100, "host", id="host-100")])
+@pytest.mark.parametrize("chunk,jax_chunk", [
+    pytest.param(0, 0, id="0"), pytest.param(100, 100, id="100"),
+    pytest.param(240, 0, id="n"), pytest.param(1000, 100, id="1000")])
 def test_sam_vcf_byte_identical_to_jax(dataset, tmp_path, jax_runs, chunk,
-                                       step2):
-    """Device STEP 2 (chunk 0: host-staged pairs; 100: fused into the
-    coarse step) and host STEP 2 (opts.step2_device = False, set in code)
-    against the JAX CLI; on the CPU no kernel launches."""
-    jsam, jvcf, jres = jax_runs(dataset, chunk)
+                                       jax_chunk):
+    """STEP 2 fused into the coarse step in one chunk of the 240 reads
+    (--pipelineChunk 0, 240 and 1000) and in chunks of 100, against the
+    JAX CLI (at --pipelineChunk 0 or 100: its output does not depend on
+    the chunk); on the CPU no kernel launches."""
+    jsam, jvcf, jres = jax_runs(dataset, jax_chunk)
     before = [k.launches for k in KERNELS]
     topts, device = cli.options_from_args(
         _argv(dataset, str(tmp_path / "port"), chunk) + ["--device", "cpu"])
-    assert topts.step2_device is True
-    topts.step2_device = step2 == "device"
     tres = run_pipeline(topts, device)
     assert [k.launches for k in KERNELS] == before
     tsam, tvcf = _outputs(topts.outputfile)
@@ -155,23 +153,21 @@ def test_sam_vcf_byte_identical_to_jax(dataset, tmp_path, jax_runs, chunk,
     np.testing.assert_array_equal(tres["results"].position, jres.position)
 
 
-@pytest.mark.parametrize("branch", ["fused", "staged", "host-fused",
-                                    "host-staged"])
+@pytest.mark.parametrize("chunk", ["64", "0", "n", "1000"])
 @pytest.mark.parametrize("mode", ["parity", "undirectional"])
 def test_modes_sam_vcf_byte_identical_to_jax(four_strand_dataset, tmp_path,
-                                             jax_runs, mode, branch):
+                                             jax_runs, mode, chunk):
     """Parity mode (canonical k-mers, the read-side key drops taken from
     the whole read set before the chunks) and --threeN --undirectional on
-    the four-strand reads: device STEP 2 fused into the coarse step
-    (--pipelineChunk 64) and on staged pairs (0), and host STEP 2, against
-    the JAX CLI with the same flags."""
+    the four-strand reads: STEP 2 fused into the coarse step in chunks of
+    64 reads and in one chunk (--pipelineChunk 0, n and 1000), against
+    the JAX CLI with the same flags (at --pipelineChunk 64 or 0)."""
     data, n_reads = four_strand_dataset
-    chunk = 64 if branch.endswith("fused") else 0
-    jsam, jvcf, jres = jax_runs(data, chunk, mode)
+    chunk = n_reads if chunk == "n" else int(chunk)
+    jsam, jvcf, jres = jax_runs(data, 64 if chunk == 64 else 0, mode)
     topts, device = cli.options_from_args(
         _argv(data, str(tmp_path / "port"), chunk, mode)
         + ["--device", "cpu"])
-    topts.step2_device = not branch.startswith("host")
     tres = run_pipeline(topts, device)
     tsam, tvcf = _outputs(topts.outputfile)
     assert tsam == jsam

@@ -1,7 +1,8 @@
 """Port parity for STEP 2 as a whole: the fused coarse + score +
-traceback step against the JAX package's, and the port's device STEP 2
-(fused bundle and host-staged chunks) against the serial host path, on
-the CPU."""
+traceback step against the JAX package's, and the port's STEP 2 (the
+fused bundle finished on the host, whole, in halves, with every walk
+overflowed, and in _pipelined_sw's chunks) against the serial host
+path, on the CPU."""
 
 import numpy as np
 import pytest
@@ -9,8 +10,10 @@ import pytest
 from hashreadmapper_tpu.pipeline import mapping as jmapping
 from hashreadmapper_tpu.pipeline.engine import CoarseMapper as JaxMapper
 from hashreadmapper_tpu_torch import native
+from hashreadmapper_tpu_torch.pipeline import driver
 from hashreadmapper_tpu_torch.pipeline import mapping as tmapping
-from hashreadmapper_tpu_torch.pipeline.engine import CoarseMapper
+from hashreadmapper_tpu_torch.pipeline.engine import (OVERFLOW_KEYS,
+                                                     CoarseMapper)
 from hashreadmapper_tpu_torch.pipeline.records import MappingRecords, emit_sam
 
 from hashreadmapper_tpu.config import ProgramOptions
@@ -63,11 +66,12 @@ def case(request):
     jres, jbundle = jm.map_reads(padded, lengths, with_scores=True)
     tm = CoarseMapper(genome, opts, "cpu")
     tres, tbundle = tm.map_reads(padded, lengths, with_scores=True)
-    return genome, opts, store, (jres, jbundle), (tres, tbundle)
+    return (genome, opts, store, (jres, jbundle), (tres, tbundle),
+            (tm, padded, lengths))
 
 
 def test_fused_scores_equal_jax(case):
-    _, opts, store, (jres, jbundle), (tres, tbundle) = case
+    _, opts, store, (jres, jbundle), (tres, tbundle), _ = case
     for f in ("orientation", "hamming", "shift", "chromosome_id", "position",
               "global_window_id", "bs_strand"):
         np.testing.assert_array_equal(getattr(tres, f), getattr(jres, f),
@@ -88,18 +92,6 @@ def test_fused_scores_equal_jax(case):
     assert opts.undirectional or not tres.bs_strand.any()
 
 
-def test_scores_only_bundle_without_traceback(case):
-    genome, opts, store, _, (_, tbundle) = case
-    _, _, _, padded, lengths = _setup_case(opts.undirectional)
-    opts.step2_device_traceback = False
-    try:
-        tm = CoarseMapper(genome, opts, "cpu")
-        _, scores = tm.map_reads(padded, lengths, with_scores=True)
-    finally:
-        opts.step2_device_traceback = True
-    np.testing.assert_array_equal(scores, tbundle[0])
-
-
 def _fields(aas):
     """What SAM and VCF read of each read's two alignments (records carry
     the s_align flags per read, in flag and flag_rc)."""
@@ -109,12 +101,16 @@ def _fields(aas):
             for a in aas]
 
 
-@pytest.mark.parametrize("branch", ["fused", "fused_scores_only", "staged"])
+@pytest.mark.parametrize("branch", ["fused", "overflowed", "halves"])
 def test_device_step2_equals_the_host_path(case, branch, monkeypatch,
                                            tmp_path):
     """Same alignments and SAM bytes as the port's _run_cssw_host and the
-    JAX package's; the host path raises while the device path runs."""
-    genome, opts, store, _, (res, bundle) = case
+    JAX package's; the host path raises while run_cssw runs.  fused: the
+    case's bundle.  overflowed: every pair's traceback status 2 and its
+    entries zeroed, so the native finish's banded DP runs every pair the
+    diagonal certificate does not cover.  halves: two map_reads over the
+    read halves, run_cssw on each, the records concatenated."""
+    genome, opts, store, _, (res, bundle), (tm, padded, lengths) = case
     genome_rc = genome.reverse_complement()
     args = (genome, genome_rc, res.orientation, res.position,
             res.chromosome_id, store, opts, res.bs_strand)
@@ -129,9 +125,22 @@ def test_device_step2_equals_the_host_path(case, branch, monkeypatch,
     def no_host(*a, **k):
         raise AssertionError("the host STEP 2 path ran")
     monkeypatch.setattr(tmapping, "_run_cssw_host", no_host)
-    pre = {"fused": bundle, "fused_scores_only": bundle[0],
-           "staged": None}[branch]
-    rec = tmapping.run_cssw(*args, pre, device="cpu")
+    if branch == "halves":
+        h = store.num_reads // 2
+        parts = []
+        for c0, c1 in ((0, h), (h, store.num_reads)):
+            r, b = tm.map_reads(padded[c0:c1], lengths[c0:c1],
+                                with_scores=True)
+            parts.append(tmapping.run_cssw(
+                genome, genome_rc, r.orientation, r.position,
+                r.chromosome_id, store.slice_rows(c0, c1), opts,
+                r.bs_strand, b))
+        rec = MappingRecords.concat(parts)
+    else:
+        if branch == "overflowed":
+            scores, ops, status = bundle
+            bundle = (scores, np.zeros_like(ops), np.full_like(status, 2))
+        rec = tmapping.run_cssw(*args, bundle)
     assert isinstance(rec, MappingRecords)
     assert _fields(rec.to_aas()) == _fields(host)
     emit_sam(rec, genome, str(tmp_path / "dev.SAM"))
@@ -143,7 +152,7 @@ def test_device_step2_equals_the_host_path(case, branch, monkeypatch,
 
 
 def test_device_step2_without_native_raises(case, monkeypatch):
-    genome, opts, store, _, (res, _) = case
+    genome, opts, store, _, (res, bundle), _ = case
 
     def no_lib():
         raise RuntimeError("the native host library is unavailable: g++ ...")
@@ -151,4 +160,34 @@ def test_device_step2_without_native_raises(case, monkeypatch):
     with pytest.raises(RuntimeError, match="native host library"):
         tmapping.run_cssw(genome, genome.reverse_complement(),
                           res.orientation, res.position, res.chromosome_id,
-                          store, opts, res.bs_strand, device="cpu")
+                          store, opts, res.bs_strand, bundle)
+
+
+def test_pipelined_sw_one_chunk_equals_several(case, monkeypatch):
+    """_pipelined_sw's STEP 2 in one chunk (--pipelineChunk 0, and a chunk
+    of every read) and in chunks of 40 reads (the last one short): the
+    same coarse rows and overflow counters, and the same records, as
+    run_cssw over the case's bundle."""
+    genome, opts, store, _, (res, bundle), (tm, padded, _) = case
+    genome_rc = genome.reverse_complement()
+    want = tmapping.run_cssw(genome, genome_rc, res.orientation,
+                             res.position, res.chromosome_id, store, opts,
+                             res.bs_strand, bundle)
+    for chunk in (0, store.num_reads, 40):
+        monkeypatch.setattr(opts, "step2_pipeline_chunk", chunk)
+        got, rec = driver._pipelined_sw(tm, padded, store, genome,
+                                        genome_rc, opts)
+        for f in ("orientation", "hamming", "shift", "chromosome_id",
+                  "position", "global_window_id", "bs_strand"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(res, f),
+                                          err_msg=f"{chunk}: {f}")
+        for k in OVERFLOW_KEYS:
+            assert got.stats[k] == res.stats[k], (chunk, k)
+        for f in ("n", "lq", "ws"):
+            assert getattr(rec, f) == getattr(want, f), (chunk, f)
+        # the CIGARs by value (an empty one's pool offset is the chunk's)
+        for f in ("q", "q_len", "win", "win_len", "position", "chrom",
+                  "flag0", "flag1", "sw", "nb", "qb", "conv", "cig_len"):
+            np.testing.assert_array_equal(getattr(rec, f), getattr(want, f),
+                                          err_msg=f"{chunk}: {f}")
+        assert _fields(rec.to_aas()) == _fields(want.to_aas()), chunk
