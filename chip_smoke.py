@@ -33,7 +33,7 @@ Phase 1  each of the seventeen CUDA kernels (the eight counterparts of
          minimum of shd_hamming_matrix against shd_best.
 Phase 2  the flagship 3N run through the port's CLI on an 8 Mbp genome and
          49,152 bisulfite reads, STEP 2 on the card: SAM/VCF checks,
-         planted-read mapping and concordance, the eleven launch counts of
+         planted-read mapping and concordance, the twelve launch counts of
          the path; then the same run in one chunk (--pipelineChunk 0) and
          the host oracle (_run_cssw_host, print_to_sam, do_vc) over its
          coarse rows (byte-identical SAM and VCF), the STEP-2 pair counts,
@@ -568,6 +568,7 @@ def phase1():
     cases.append(shd_stage_case(dev))
     cases.extend(minhash_stage_cases(dev))
     cases.extend(probe_pair_cases(dev))
+    cases.extend(step2_rows_cases(dev))
     records = {}
     for case in cases:
         name, shape = case["name"], case["shape"]
@@ -1053,6 +1054,56 @@ def fused_sw_cases(dev, label, pairs, lq):
                                 ops(cells_r, OPS_PER_SW_CELL)))]
 
 
+def step2_rows_cases(dev):
+    """STEP 2's rows (ops/step2rows_kernel.py) at the fused step's shape, a
+    4,096-read batch of 100-base reads in rows of 128 (the staged width),
+    window 128: against an 8 Mbp chromosome with N and IUPAC letters
+    (every 97th base N, every 101st R), reads at random positions (the
+    last 64 at the chromosome's start, the next 64 at its end), a quarter
+    RC, 200 unmapped, and, under --undirectional, half the FORWARD reads
+    mirrored.  Bound: bytes, the inputs and the rows once and the two
+    window reads a read in 32-byte sectors."""
+    from hashreadmapper_tpu_torch.config import ProgramOptions
+    from hashreadmapper_tpu_torch.io.genome import Genome
+    from hashreadmapper_tpu_torch.ops import step2rows_kernel as s2k
+    from hashreadmapper_tpu_torch.pipeline.engine import build_step2_genome
+    rng = np.random.default_rng(22)
+    b, lq, ws = 4096, 128, 128
+    chrom = ACGT[rng.integers(0, 4, size=GENOME_LEN)]
+    chrom[::97] = ord("N")
+    chrom[::101] = ord("R")
+    genome = Genome(["chrS"], [chrom.tobytes().decode()])
+    s2 = build_step2_genome(genome, ProgramOptions(window_size=ws,
+                                                   max_read_length=lq), dev)
+    chrom_len = torch.tensor([GENOME_LEN], dtype=torch.int64, device=dev)
+    bases = np.zeros((b, lq), np.int8)
+    bases[:, :READ_LEN] = rng.integers(0, 4, size=(b, READ_LEN))
+    lens = np.full(b, READ_LEN, np.int32)
+    packed = np.zeros((b, 7), np.int32)
+    packed[:, 0] = np.where(rng.random(b) < 0.25, 2, 1)
+    packed[:200, 0] = 3
+    packed[:, 4] = rng.integers(0, GENOME_LEN, size=b)
+    packed[:200, 4] = 0
+    packed[-64:, 4] = np.arange(64)
+    packed[-128:-64, 4] = GENOME_LEN - 1 - np.arange(64)
+    packed[:, 6] = rng.integers(0, 2, size=b)
+    args = [torch.from_numpy(x).to(dev) for x in (bases, lens, packed)]
+    args += [s2.offset, chrom_len, s2.letters, s2.translate, s2.complement,
+             ws]
+    cases = []
+    for und in (False, True):
+        a = args + [und]
+        cases.append(dict(
+            key="step2_rows", name="step2_rows",
+            shape=f"B={b} L={lq} ws={ws}, 100-base reads, "
+                  + ("--undirectional" if und else "directional"),
+            kernel=lambda a=a: s2k.step2_rows(*a),
+            plain=lambda a=a: s2k.step2_rows_plain(*a),
+            bound=lambda out, a=a: (nbytes(*a[:3], *out)
+                                    + 2 * 32 * (ws // 32 + 1) * b, ops(0))))
+    return cases
+
+
 def step2_cases(rng, dev):
     """The STEP-2 kernels at the fused path's shapes: P = 8,192 pairs
     (one 4,096-read batch), LQ = n_cols = NL = 128."""
@@ -1314,7 +1365,7 @@ def write_dataset(tmp, rng):
 
 
 def kernel_wrappers():
-    """The wrappers of the eleven kernels on the CLI's path, by the names
+    """The wrappers of the twelve kernels on the CLI's path, by the names
     of the kernels JSON.  The fill's launch on that path is the fused
     traceback (all passes and the walk in one), the striped pass's the
     forward and the reverse score pass (the column pass with what stands
@@ -1323,7 +1374,8 @@ def kernel_wrappers():
     minhash_kernel.signature_stage: the direct shd_best and
     sigs_from_bases have no caller there.  The probe is two launches
     (probe_lookup, probe_gather), the pair stage two around the SHD
-    (pair_select, read_best)."""
+    (pair_select, read_best); STEP 2's rows one before the score passes
+    (step2_rows)."""
     from hashreadmapper_tpu_torch.ops.bandtb_kernel import shift_sub, traceback
     from hashreadmapper_tpu_torch.ops.minhash_kernel import signature_stage
     from hashreadmapper_tpu_torch.ops.pairs_kernel import (pair_select,
@@ -1331,21 +1383,22 @@ def kernel_wrappers():
     from hashreadmapper_tpu_torch.ops.probe_kernel import (probe_gather,
                                                            probe_lookup)
     from hashreadmapper_tpu_torch.ops.shd_kernel import shd_pairs_best
+    from hashreadmapper_tpu_torch.ops.step2rows_kernel import step2_rows
     from hashreadmapper_tpu_torch.ops.swdev_kernel import (sw_forward,
                                                            sw_reverse)
     from hashreadmapper_tpu_torch.ops.vote_kernel import vote_candidates_fnc
     return {"minhash_stage": signature_stage, "probe_lookup": probe_lookup,
             "probe_gather": probe_gather, "vote": vote_candidates_fnc,
             "pair_select": pair_select, "shd_pairs_best": shd_pairs_best,
-            "read_best": read_best, "sw_forward": sw_forward,
-            "sw_reverse": sw_reverse, "shift_sub": shift_sub,
-            "traceback": traceback}
+            "read_best": read_best, "step2_rows": step2_rows,
+            "sw_forward": sw_forward, "sw_reverse": sw_reverse,
+            "shift_sub": shift_sub, "traceback": traceback}
 
 
 def counted(label, fn, path_kernels=None):
-    """fn() with the eleven kernels' launch counts set to 0 just before
+    """fn() with the twelve kernels' launch counts set to 0 just before
     and read just after: (result, seconds, launches).  Fails when a kernel
-    of the path (path_kernels: names of kernel_wrappers(), all eleven by
+    of the path (path_kernels: names of kernel_wrappers(), all twelve by
     default) was never launched, when the path went through the
     unfused striped pass (which builds the striped read tensor and the
     per-column maxima in device memory), the direct shd_best kernel (the
@@ -1666,7 +1719,8 @@ def card_equals_cpu(label, mappers, reads, n, n_step2):
     versions): identical packed [B, 7] rows (strand column included) and
     [5] overflow vectors of the first n reads, and, with n_step2 > 0,
     identical fused STEP-2 bundles of the first n_step2 reads."""
-    from hashreadmapper_tpu_torch.pipeline.engine import fused_step2_scores
+    from hashreadmapper_tpu_torch.pipeline.engine import (Step2Rows,
+                                                          fused_step2_scores)
     devices = list(mappers)
     n = min(n, len(reads))
     n_step2 = min(n_step2, n, min(m.opts.batchsize for m in mappers.values()))
@@ -1683,8 +1737,8 @@ def card_equals_cpu(label, mappers, reads, n, n_step2):
         if n_step2:
             k = slice(0, n_step2)
             step2[dev] = [x.cpu() for x in fused_step2_scores(
-                m.opts, m.table.chrom_offset, m.table.chrom_len,
-                m.genome_s2(), b[k], l[k], parts[0][0][k])]
+                m.opts, m.table.chrom_len, m.step2_genome(), b[k], l[k],
+                parts[0][0][k])]
         log(f"{label} {dev}: {n} reads in {t1 - t0:.3f} s, fused STEP 2 of "
             f"{n_step2} reads in {time.perf_counter() - t1:.3f} s")
     card, host = (outs[d] for d in devices)
@@ -1702,11 +1756,12 @@ def card_equals_cpu(label, mappers, reads, n, n_step2):
         f"{int((rows[:, 6] != 0).sum())} rows")
     if not n_step2:
         return rows
-    names = ("scores [10, 2B]", "tb_ops [2B, 48]", "tb_status [2B]")
+    names = ("scores [10, 2B]", "tb_ops [2B, 48]", "tb_status [2B]",
+             *Step2Rows._fields)
     for name, c, h in zip(names, *(step2[d] for d in devices)):
         if c.dtype != h.dtype or not torch.equal(c, h):
             raise AssertionError(f"{label} fused STEP 2 {name}: card != CPU")
-    sc, _, st = step2[devices[0]]
+    sc, _, st = step2[devices[0]][:3]
     ga = (rows[:n_step2, 6] != 0) & (rows[:n_step2, 0] == 1)
     log(f"{label} card == CPU: fused STEP 2 of the first {n_step2} reads, "
         f"{names} identical ({int((sc[9] == 0).sum())} pairs not "
@@ -2266,8 +2321,8 @@ def mesh_card_equals_cpu(label, genome, flags, reads, mesh_shape, regions=0,
     card, host = outs["cuda:0"], outs["cpu"]
     if with_scores:
         (card, c_bundle), (host, h_bundle) = card, host
-        for name, c, h in zip(("scores", "tb_ops", "tb_status"), c_bundle,
-                              h_bundle):
+        for name, c, h in zip(STEP_OUTPUTS[2:], (*c_bundle, *c_bundle.rows),
+                              (*h_bundle, *h_bundle.rows)):
             if c.dtype != h.dtype or not np.array_equal(c, h):
                 raise AssertionError(f"{label}: fused STEP 2 {name}: card "
                                      "!= CPU")
@@ -2519,7 +2574,9 @@ def phase9(tmp, res, reads, starts, junk):
 GRAPH_CASES = []
 WINDOW_CASES = []
 STEP_OUTPUTS = ("packed [B, 7]", "overflow [5]", "scores [10, 2B]",
-                "tb_ops [2B, 48]", "tb_status [2B]")
+                "tb_ops [2B, 48]", "tb_status [2B]", "q [B, L]", "rcq [B, L]",
+                "win [B, ws]", "win_rc [B, ws]", "wlen [B]", "q3 [2B, L]",
+                "win3 [B, ws]")
 
 
 @contextlib.contextmanager
@@ -2540,7 +2597,7 @@ def graph_equals_eager(label, mapper, padded, lens):
     """Each CoarseMapper of the case (every region's) over the staged
     reads: _map_reads_device_scored, one graph replay a batch, against
     the eager step of each batch: packed rows, overflow, score rows,
-    traceback entries and status, bit for bit."""
+    traceback entries and status, and STEP 2's rows, bit for bit."""
     batches = 0
     for m in getattr(mapper, "mappers", [mapper]):
         m.ensure_empty_drops()
@@ -2553,9 +2610,12 @@ def graph_equals_eager(label, mapper, padded, lens):
                                   with_scores=True)
             overflow += eager[1]
             p = slice(2 * s, 2 * (s + bsz))
+            rows = [x[p] if name.startswith("q3") else x[s:s + bsz]
+                    for name, x in zip(STEP_OUTPUTS[5:], graph[5:])]
             for name, g, e in zip(STEP_OUTPUTS,
                                   (graph[0][s:s + bsz], None,
-                                   graph[2][:, p], graph[3][p], graph[4][p]),
+                                   graph[2][:, p], graph[3][p], graph[4][p],
+                                   *rows),
                                   eager):
                 if g is not None and (g.dtype != e.dtype
                                       or not torch.equal(g, e)):
@@ -2719,8 +2779,8 @@ def phase10(tmp):
 def mesh_graph_equals_eager(label, mapper, padded, lens):
     """The mesh's _map_reads_device_scored, a replay a data shard's batch,
     against the eager step (_map_shard_batch) of every data shard's batch:
-    packed rows, overflow, score rows, traceback entries and status, bit
-    for bit.  Returns the batches compared."""
+    packed rows, overflow, score rows, traceback entries and status, and
+    STEP 2's rows, bit for bit.  Returns the batches compared."""
     mapper.ensure_read_drops(padded, lens)
     mapper.ensure_empty_drops()
     staged = mapper.stage_reads_device(padded, lens)
@@ -2733,8 +2793,8 @@ def mesh_graph_equals_eager(label, mapper, padded, lens):
     want = (torch.cat([e[0] for e in eager]),
             torch.stack([e[1] for e in eager]).sum(dim=0),
             torch.cat([e[2] for e in eager], dim=1),
-            torch.cat([e[3] for e in eager]),
-            torch.cat([e[4] for e in eager]))
+            *(torch.cat([e[i] for e in eager])
+              for i in range(3, len(STEP_OUTPUTS))))
     for name, g, e in zip(STEP_OUTPUTS, graph, want):
         if g.dtype != e.dtype or not torch.equal(g, e):
             raise AssertionError(f"phase11 {label}: {name} graph != eager")
@@ -2879,7 +2939,11 @@ def main():
             "pair_select": (src + "pairs.cu",
                             "hashreadmapper_tpu/pipeline/engine.py:149"),
             "read_best": (src + "pairs.cu",
-                          "hashreadmapper_tpu/pipeline/engine.py:149")}
+                          "hashreadmapper_tpu/pipeline/engine.py:149"),
+            # the XLA pair build of the JAX fused step and the host's numpy
+            # rebuild of the same rows (mapping.py's _run_cssw_device)
+            "step2_rows": (src + "step2rows.cu",
+                           "hashreadmapper_tpu/pipeline/engine.py:318")}
     from hashreadmapper_tpu_torch.ops.bandtb_kernel import fill_pass
     from hashreadmapper_tpu_torch.ops.swdev_kernel import pass_batched
     # the fill's launch on the main path is the fused traceback (one a

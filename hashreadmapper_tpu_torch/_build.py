@@ -107,6 +107,10 @@ _SIGNATURES = {
     # win_pos, win_chrom, stats, num_kept, pair_drops, packed, ori_out,
     # overflow, p, b, k, n_win, n_stats, stream
     "hrm_read_best": [_P] * 17 + [_L] * 5 + [_P],
+    # bases, read_len, packed, offset, chrom_len, letters, translate,
+    # complement, pair_q_t, pair_ref_t, q, rcq, win, win_rc, wlen, q3, win3,
+    # b, lq, ws, n_chrom, g, undirectional, stream
+    "hrm_step2_rows": [_P] * 17 + [_L] * 5 + [_I, _P],
 }
 
 _lock = threading.Lock()

@@ -230,15 +230,27 @@ def read_fastx_native(path: str, pitch: int, batch: int = 65536,
         lib.hrm_fastx_close(h)
 
 
-def ssw_finish_batch(query_pool: bytes, query_off, query_len,
-                     ref_pool: bytes, ref_off, ref_len,
+def _pool(x):
+    """A byte pool argument: bytes as they are, or the memory of a
+    C-contiguous numpy array (no copy; the caller holds the array over
+    the call)."""
+    if isinstance(x, bytes):
+        return x
+    if not x.flags.c_contiguous:
+        raise ValueError("a native pool must be C-contiguous")
+    return x.ctypes.data_as(ctypes.c_char_p)
+
+
+def ssw_finish_batch(query_pool, query_off, query_len, ref_pool, ref_off,
+                     ref_len,
                      score1, ref_begin, ref_end, query_begin, query_end,
                      flag_in, threads: int = 0, cigar_stride: int = 1024,
                      codes: bool = False, diag=None, raw: bool = False,
                      dev_ops=None, dev_fail=None):
     """Banded CIGAR + =/X rewrite for device-scored pairs.
 
-    All array args are int32 numpy arrays of equal length n.  With
+    The pools are bytes or C-contiguous numpy arrays (their memory, no
+    copy); the other array args int32 numpy arrays of equal length n.  With
     codes=True the pools hold 0..4 base codes instead of ASCII (zero-copy
     in the native worker).  diag (optional bool/int8 [n]): pairs certified
     all-M by the device (swdev._diag_fastpath_flag) skip the banded DP and
@@ -288,8 +300,10 @@ def ssw_finish_batch(query_pool: bytes, query_off, query_len,
     else:
         ops_p, ops_stride, fail_p = None, 0, None
     rc = lib.hrm_ssw_finish_batch(
-        query_pool, arrs[0].ctypes.data_as(i32p), arrs[1].ctypes.data_as(i32p),
-        ref_pool, arrs[2].ctypes.data_as(i32p), arrs[3].ctypes.data_as(i32p),
+        _pool(query_pool), arrs[0].ctypes.data_as(i32p),
+        arrs[1].ctypes.data_as(i32p),
+        _pool(ref_pool), arrs[2].ctypes.data_as(i32p),
+        arrs[3].ctypes.data_as(i32p),
         arrs[4].ctypes.data_as(i32p), arrs[5].ctypes.data_as(i32p),
         arrs[6].ctypes.data_as(i32p), arrs[7].ctypes.data_as(i32p),
         arrs[8].ctypes.data_as(i32p), arrs[9].ctypes.data_as(i32p),
@@ -306,11 +320,11 @@ def ssw_finish_batch(query_pool: bytes, query_off, query_len,
     return cigars, mism, flags
 
 
-def rescore_batch(q_pool: bytes, q_off, q_len, ref_pool: bytes, ref_off,
-                  ref_len, rcref_pool: bytes, rcref_off, rcref_len,
-                  cig_pool: bytes, cig_off, cig_len, sw_score, sw_next,
-                  threads: int = 0):
+def rescore_batch(q_pool, q_off, q_len, ref_pool, ref_off, ref_len,
+                  rcref_pool, rcref_off, rcref_len, cig_pool, cig_off,
+                  cig_len, sw_score, sw_next, threads: int = 0):
     """Native bisulfite rescoring (recalculateAlignmentScorefk batch).
+    The pools are bytes or C-contiguous numpy arrays (ssw_finish_batch).
 
     sw_score / sw_next are int32 arrays adjusted IN PLACE; returns the
     per-alignment conversion counts."""
@@ -332,11 +346,14 @@ def rescore_batch(q_pool: bytes, q_off, q_len, ref_pool: bytes, ref_off,
     assert sw_next.dtype == np.int32 and sw_next.flags.c_contiguous
     conv = np.zeros(n, np.int32)
     lib.hrm_rescore_batch(
-        q_pool, offs[0].ctypes.data_as(i32p), offs[1].ctypes.data_as(i32p),
-        ref_pool, offs[2].ctypes.data_as(i32p), offs[3].ctypes.data_as(i32p),
-        rcref_pool, offs[4].ctypes.data_as(i32p),
+        _pool(q_pool), offs[0].ctypes.data_as(i32p),
+        offs[1].ctypes.data_as(i32p),
+        _pool(ref_pool), offs[2].ctypes.data_as(i32p),
+        offs[3].ctypes.data_as(i32p),
+        _pool(rcref_pool), offs[4].ctypes.data_as(i32p),
         offs[5].ctypes.data_as(i32p),
-        cig_pool, offs[6].ctypes.data_as(i32p), offs[7].ctypes.data_as(i32p),
+        _pool(cig_pool), offs[6].ctypes.data_as(i32p),
+        offs[7].ctypes.data_as(i32p),
         sw_score.ctypes.data_as(i32p), sw_next.ctypes.data_as(i32p),
         conv.ctypes.data_as(i32p), n, threads)
     return conv

@@ -30,7 +30,8 @@ from ..config import ProgramOptions
 from ..io.genome import Genome
 from ..ops import bandtb, shd
 from ..pipeline.engine import (OVERFLOW_KEYS, SENTINEL, CoarseMapper,
-                               CoarseResults, pool_ranges)
+                               CoarseResults, Step2Bundle, Step2Rows,
+                               pool_ranges)
 from .sharded import ShardedCoarseMapper
 from .segments import (Segment, partition_windows, regions_for_base_cap,
                        staged_bases, whole_chromosome_segments)
@@ -207,9 +208,12 @@ class RegionShardedMapper:
         """Every region's coarse step over all reads, merged per read by
         (hamming, global window ordinal).  No read-key drop applies (each
         region's mask is empty).  with_scores: also the fused STEP-2
-        bundle, each read's pair columns 2i and 2i+1 taken from the region
-        that won it (zeros for an unmapped read), as CoarseMapper.map_reads
-        returns it."""
+        bundle, each read's pair columns 2i and 2i+1 and its rows taken
+        from the region that won it, as CoarseMapper.map_reads returns it.
+        An unmapped read's pair columns are zeros and its rows those of
+        the region that stages chromosome 0 from its first base as its
+        segment 0, where the read stands (chromosome 0, position 0) as it
+        does in the single mapper."""
         n = len(read_lengths)
         out = CoarseResults(
             orientation=np.full(n, shd.NONE, dtype=np.int8),
@@ -254,11 +258,18 @@ class RegionShardedMapper:
         scores = np.zeros((10, 2 * n), np.int16)
         tb_ops = np.zeros((2 * n, bandtb.FUSED_ENTRIES), np.uint8)
         tb_st = np.zeros(2 * n, np.int8)
-        for r_i, (sc, to, ts) in enumerate(region_scores):
-            rows = np.nonzero(win_region == r_i)[0]
-            cols = np.repeat(2 * rows, 2)
+        r0 = next(r for r, segs in enumerate(self.regions)
+                  if (segs[0].chrom_id, segs[0].win_start) == (0, 0))
+        rows = Step2Rows(*(x.copy() for x in region_scores[r0].rows))
+        for r_i, bundle in enumerate(region_scores):
+            won = np.nonzero(win_region == r_i)[0]
+            cols = np.repeat(2 * won, 2)
             cols[1::2] += 1
+            sc, to, ts = bundle
             scores[:, cols] = sc[:, cols]
             tb_ops[cols] = to[cols]
             tb_st[cols] = ts[cols]
-        return out, (scores, tb_ops, tb_st)
+            for name, dst, src in zip(Step2Rows._fields, rows, bundle.rows):
+                sel = cols if name == "q3" else won
+                dst[sel] = src[sel]
+        return out, Step2Bundle(scores, tb_ops, tb_st, rows)

@@ -56,8 +56,9 @@ from ..index import minhash_index as mi
 from ..io.genome import Genome
 from ..ops import minhash
 from ..pipeline import graphs
-from ..pipeline.engine import (OVERFLOW_KEYS, SENTINEL, CoarseMapper,
-                               CoarseResults, WindowTable, coarse_pairs_best,
+from ..pipeline.engine import (OVERFLOW_KEYS, SENTINEL, STEP2_AXES,
+                               CoarseMapper, CoarseResults, Step2Bundle,
+                               Step2Genome, WindowTable, coarse_pairs_best,
                                fused_step2_scores, window_bases_device)
 
 
@@ -165,7 +166,7 @@ class ShardedCoarseMapper:
         self.f_local = self.n_tables // n_table
         self.shards = self._build_index_sharded(build_direct_probe)
         self._replicas: Dict[torch.device, tuple] = {}
-        self._genome_s2: Dict[torch.device, torch.Tensor] = {}
+        self._step2_genome: Dict[torch.device, Step2Genome] = {}
         # (keys, num) of every table shard's dropped-keys mask by device
         self.dropped: Dict[tuple, tuple] = {}
         self._drops_set = False
@@ -332,11 +333,11 @@ class ShardedCoarseMapper:
             self._replicas[dev] = (table, self.base._hash_ids_dev.to(dev))
         return self._replicas[dev]
 
-    def genome_s2(self, dev: torch.device) -> torch.Tensor:
-        """The STEP-2 genome codes, staged once a physical device."""
-        if dev not in self._genome_s2:
-            self._genome_s2[dev] = self.base.genome_s2().to(dev)
-        return self._genome_s2[dev]
+    def step2_genome(self, dev: torch.device) -> Step2Genome:
+        """STEP 2's genome, staged once a physical device."""
+        if dev not in self._step2_genome:
+            self._step2_genome[dev] = self.base.step2_genome().to(dev)
+        return self._step2_genome[dev]
 
     def _head(self, dev0: torch.device, read_bases: torch.Tensor,
               read_len: torch.Tensor, read_valid: torch.Tensor):
@@ -396,10 +397,10 @@ class ShardedCoarseMapper:
         """The gathered lists [F (2F undirectional), B, C] of a data shard
         and its probes' stats [S, 3] -> (packed [B, 7] int32, overflow [5]
         int64), as CoarseMapper._map_batch packs them, and with_scores the
-        fused STEP 2 (scores, tb_ops, tb_status) on its first device (the
-        JAX package's _ensure_scored_tail).  Probe, vote and pair counters
-        once a data shard; the tail drops summed over the table shards, the
-        head drops 0 (no head budget on the mesh)."""
+        fused STEP 2 (scores, tb_ops, tb_status, *Step2Rows) on its first
+        device (the JAX package's _ensure_scored_tail).  Probe, vote and
+        pair counters once a data shard; the tail drops summed over the
+        table shards, the head drops 0 (no head budget on the mesh)."""
         opts = self.opts
         table, _ = self._replica(dev0)
         ids, _, num_kept = mi.vote_candidates_fnc_auto(
@@ -411,8 +412,8 @@ class ShardedCoarseMapper:
         if not with_scores:
             return packed, overflow
         return (packed, overflow, *fused_step2_scores(
-            opts, table.chrom_offset, table.chrom_len, self.genome_s2(dev0),
-            read_bases, read_len, packed))
+            opts, table.chrom_len, self.step2_genome(dev0), read_bases,
+            read_len, packed))
 
     def _blocks(self) -> int:
         return 2 if self.opts.undirectional else 1
@@ -507,7 +508,7 @@ class ShardedCoarseMapper:
         for row in self.mesh.devices:
             self._replica(row[0])
             if with_scores:
-                self.genome_s2(row[0])
+                self.step2_genome(row[0])
 
     def _pool_device(self, bases, lens, valid, n_pad: int,
                      with_scores: bool):
@@ -517,7 +518,7 @@ class ShardedCoarseMapper:
         device's next step; then the shards' results gathered on the
         first device in read order: (packed [n_pad, 7], overflow [5]
         summed, and with_scores scores [10, 2 n_pad], tb_ops [2 n_pad, E],
-        tb_status [2 n_pad])."""
+        tb_status [2 n_pad], *Step2Rows of the n_pad rows)."""
         d_n, bsz = self.mesh.shape["data"], self.opts.batchsize
         nb = n_pad // (bsz * d_n)
         if n_pad <= 0 or n_pad != nb * bsz * d_n or len(bases) != d_n \
@@ -527,7 +528,7 @@ class ShardedCoarseMapper:
                 f"cannot run {n_pad} rows in mesh batches of {d_n} x {bsz}")
         self._prepare(with_scores)
         # the batch axis of each output; None: summed over the batches
-        axes = (0, None) + ((1, 0, 0) if with_scores else ())
+        axes = (0, None) + (STEP2_AXES if with_scores else ())
         first = self.mesh.first
         outs = [None] * d_n
         with _card_streams([dev for row in self.mesh.devices for dev in row]):
@@ -617,7 +618,8 @@ class ShardedCoarseMapper:
                                  bsz: int):
         """_map_reads_device with the fused STEP 2: (packed [n_pad, 7],
         overflow [5], scores [10, 2 n_pad] int16, tb_ops [2 n_pad, E]
-        uint8, tb_status [2 n_pad] int8), on the first device."""
+        uint8, tb_status [2 n_pad] int8, *Step2Rows of the n_pad rows), on
+        the first device."""
         return self._pool_device(bases, lens, valid, n_pad, True)
 
     def map_staged(self, bases, lens, valid, n_pad: int, n: int,
@@ -629,10 +631,7 @@ class ShardedCoarseMapper:
             raise ValueError("candidate collection is a single-device "
                              "instrumentation mode (CoarseMapper)")
         out = self._pool_device(bases, lens, valid, n_pad, with_scores)
-        bundle = None
-        if with_scores:
-            sc, to, ts = out[2:]
-            bundle = (sc[:, :2 * n], to[:2 * n], ts[:2 * n])
+        bundle = Step2Bundle.from_outputs(out, n) if with_scores else None
         return out[0][:n], out[1], bundle, None
 
     def fetch_results(self, parts, with_scores: bool = False,

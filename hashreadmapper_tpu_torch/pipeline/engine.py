@@ -4,8 +4,10 @@ through (counterpart of hashreadmapper_tpu/pipeline/engine.py).
 Per read batch: signatures -> capped CSR probe -> min-table-hits vote
 -> SHD against the extended candidate windows -> per-read best (min
 Hamming, then earliest window); with scores, also the fused STEP 2: the
-3N pairs of every read against its window, the striped-SW score passes
-and the banded traceback (fused_step2_scores).  Three seeding modes:
+rows of every read (ops/step2rows_kernel.py: the 3N pairs of the read
+against its window, and the query, window and RC window rows the host
+finishes from), the striped-SW score passes and the banded traceback
+(fused_step2_scores).  Three seeding modes:
 parity (canonical k-mers, F tables, un-collapsed SHD), --threeN (CT and
 GA spaces, 2F tables) and --threeN --undirectional (the 2F tables probed
 a second time with the mirrored PBAT query spaces, and a second,
@@ -30,17 +32,16 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..align import sw
 from ..config import ProgramOptions
 from ..index import minhash_index as mi
 from ..io.genome import Genome
-from ..ops import (bandtb, encode, minhash, pairs_kernel, shd, swdev,
-                   vote_kernel)
+from ..ops import (bandtb, minhash, pairs_kernel, shd, step2rows_kernel,
+                   swdev, vote_kernel)
 from ..ops.shd_kernel import pack_genome_planes
 from ..parallel.segments import segment_base_span
 from ..utils import tracing
@@ -204,57 +205,106 @@ def coarse_pairs_best(ids, read_bases, read_len, opts: ProgramOptions,
         pair_drops)
 
 
-def build_genome_s2(genome: Genome, segments=None,
-                    opts: Optional[ProgramOptions] = None) -> np.ndarray:
-    """[G] int8 STEP-2 genome codes 0..4 of exactly the spans the window
-    table stages (with segments: each segment's span with its margins), so
-    that the table's chrom_offset indexes it too.  Unlike genome_concat, N
-    stays code 4 (align.sw.TRANSLATE), which the score passes treat as a
-    mismatch.  The JAX package nibble-packs the same codes to work around
-    TPU gathers (engine.build_genome_s2); here they stay one byte each."""
-    return np.concatenate([sw.TRANSLATE[np.asarray(genome.seqs_ascii[c])
-                                        [lo:hi]]
-                           for c, lo, hi in staged_spans(genome, segments,
-                                                         opts)]
-                          ).astype(np.int8)
+class Step2Genome(NamedTuple):
+    """STEP 2's genome on a device: the letters of exactly the base spans
+    the window table stages, each reaching window_size - 1 bases further
+    left (a window's RC row reads back from its position), as
+    Genome.seqs_ascii holds them (uppercased, N and IUPAC letters kept);
+    offset [C] the index in letters of a chromosome's (a segment's) base
+    0, so offset + a true position is that base; and the letter tables
+    (ops/step2rows_kernel.py::tables)."""
+    letters: torch.Tensor       # [G] uint8
+    offset: torch.Tensor        # [C] int64
+    translate: torch.Tensor     # [256] int8
+    complement: torch.Tensor    # [256] uint8
+
+    def to(self, device) -> "Step2Genome":
+        return Step2Genome(*(x.to(device) for x in self))
 
 
-def fused_step2_scores(opts: ProgramOptions, chrom_offset, chrom_len,
-                       genome_s2, read_bases, read_len, packed):
-    """STEP 2 of one coarse-mapped batch (engine.fused_step2_scores):
-    pairs [2i] = 3N query and [2i+1] = 3N reverse-complement query of read
-    i, both against read i's 3N window, for every row of the batch
-    (unmapped and padding rows score against chromosome 0, position 0).
-    The collapse is C->T, or G->A for a read whose packed strand is 1 in
-    FORWARD orientation (a PBAT read under opts.undirectional).
-    Returns (scores [10, 2B] int16, tb_ops [2B, 48] uint8, tb_status
-    [2B] int8)."""
+def build_step2_genome(genome: Genome, opts: ProgramOptions, device,
+                       segments=None) -> Step2Genome:
+    """Stage STEP 2's genome (Step2Genome) of the spans the window table
+    stages (with segments: each segment's span with its margins).  The
+    JAX package stages the TRANSLATE codes nibble-packed
+    (engine.build_genome_s2); the letters keep what the host's rows need
+    (the records' window is the letters themselves)."""
     ws = opts.window_size
-    b, lq = read_bases.shape
-    dev = read_bases.device
-    packed = packed.to(torch.int64)
-    ori, chrom, pos = packed[:, 0], packed[:, 3], packed[:, 4]
-    ga_t = ((packed[:, 6] != 0) & (ori == 1))[None, :]
-    rc = encode.revcomp_bases(read_bases, read_len)
-    is_rc = (ori == 2)[:, None]
-    # pairs built transposed ([L, pairs]), the layout the passes take
-    fwd_t = torch.where(is_rc, rc, read_bases).T
-    rcq_t = torch.where(is_rc, read_bases, rc).T
-    clen = chrom_len[chrom]
-    wl = torch.where(pos + ws < clen, ws, clen - pos).to(torch.int32)
-    iw = torch.arange(ws, device=dev)[:, None]
-    gidx = (chrom_offset[chrom] + pos)[None, :] + iw
-    win_t = genome_s2[gidx.clamp(0, genome_s2.shape[0] - 1)]
-    win_t = torch.where(iw < wl, win_t, 4)
+    spans = [(c, max(0, lo - (ws - 1)), hi)
+             for c, lo, hi in staged_spans(genome, segments, opts)]
+    sizes = np.array([hi - lo for _, lo, hi in spans], dtype=np.int64)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    offset = starts - np.array([lo for _, lo, _ in spans], dtype=np.int64)
+    letters = np.concatenate([np.asarray(genome.seqs_ascii[c])[lo:hi]
+                              for c, lo, hi in spans])
+    return Step2Genome(torch.from_numpy(letters).to(device),
+                       torch.from_numpy(offset).to(device),
+                       *step2rows_kernel.tables(device))
 
-    def collapse(m):
-        ct = encode.three_n_c_to_t(m)
-        if not opts.undirectional:
-            return ct
-        return torch.where(ga_t, encode.three_n_g_to_a(m), ct)
-    pair_q_t = torch.stack([collapse(fwd_t), collapse(rcq_t)],
-                           dim=2).reshape(lq, 2 * b)
-    pair_ref_t = collapse(win_t).repeat_interleave(2, dim=1)
+
+class Step2Rows(NamedTuple):
+    """STEP 2's rows of n reads (ops/step2rows_kernel.py::step2_rows): the
+    query and its reverse complement in ASCII, the window and the RC
+    window in ASCII, the window lengths, the pairs' 3N rows (2i the query,
+    2i + 1 the RC query of read i) and the windows' 3N rows."""
+    q: object          # [n, L] uint8
+    rcq: object        # [n, L] uint8
+    win: object        # [n, ws] uint8
+    win_rc: object     # [n, ws] uint8
+    wlen: object       # [n] int32
+    q3: object         # [2n, L] int8
+    win3: object       # [n, ws] int8
+
+    def trimmed(self, n: int) -> "Step2Rows":
+        return Step2Rows(*(x[:2 * n] if name == "q3" else x[:n]
+                           for name, x in zip(self._fields, self)))
+
+    def nbytes(self) -> int:
+        return sum(int(x.nbytes) for x in self)
+
+
+class Step2Bundle(tuple):
+    """The fused STEP 2 of n reads: the JAX package's bundle, the 3-tuple
+    (scores [10, 2n] int16, tb_ops [2n, E] uint8, tb_status [2n] int8),
+    whose .rows are the same reads' Step2Rows.  Tensors on the device
+    (map_staged) or numpy on the host (map_reads)."""
+
+    def __new__(cls, scores, tb_ops, tb_status, rows: Step2Rows):
+        self = super().__new__(cls, (scores, tb_ops, tb_status))
+        self.rows = rows
+        return self
+
+    @classmethod
+    def from_outputs(cls, outs, n: int) -> "Step2Bundle":
+        """The bundle of the last STEP2_OUTPUTS pool outputs of n reads
+        (_pool_device's, over padded rows)."""
+        sc, to, ts, *rows = outs[-STEP2_OUTPUTS:]
+        return cls(sc[:, :2 * n], to[:2 * n], ts[:2 * n],
+                   Step2Rows(*rows).trimmed(n))
+
+
+# fused_step2_scores' outputs: scores, tb_ops, tb_status and the rows
+STEP2_OUTPUTS = 3 + len(Step2Rows._fields)
+# their batch axes (the scores' columns, every other's rows)
+STEP2_AXES = (1,) + (0,) * (STEP2_OUTPUTS - 1)
+
+
+def fused_step2_scores(opts: ProgramOptions, chrom_len, s2: Step2Genome,
+                       read_bases, read_len, packed):
+    """STEP 2 of one coarse-mapped batch (engine.fused_step2_scores): the
+    rows of every read of the batch (step2rows_kernel.step2_rows; unmapped
+    and padding rows stand against chromosome 0, position 0), then pairs
+    [2i] = 3N query and [2i+1] = 3N reverse-complement query of read i,
+    both against read i's 3N window, through the score passes and the
+    traceback.  The collapse is C->T, or G->A for a read whose packed
+    strand is 1 in FORWARD orientation (a PBAT read under
+    opts.undirectional).  Returns (scores [10, 2B] int16, tb_ops [2B, 48]
+    uint8, tb_status [2B] int8, *Step2Rows of the batch)."""
+    ws = opts.window_size
+    pair_q_t, pair_ref_t, *rows = step2rows_kernel.step2_rows(
+        read_bases, read_len, packed, s2.offset, chrom_len, s2.letters,
+        s2.translate, s2.complement, ws, opts.undirectional)
+    wl = rows[4]
     rl32 = read_len.to(torch.int32)
     scores = swdev.ssw_score_packed_t(
         pair_q_t, rl32.repeat_interleave(2),
@@ -262,7 +312,7 @@ def fused_step2_scores(opts: ProgramOptions, chrom_offset, chrom_len,
         (rl32 // 2).clamp(min=15).repeat_interleave(2), ws)
     tb_ops, tb_status = bandtb.fused_traceback_t(pair_q_t, pair_ref_t,
                                                  scores)
-    return scores.to(torch.int16), tb_ops, tb_status
+    return (scores.to(torch.int16), tb_ops, tb_status, *rows)
 
 
 def pool_ranges(n: int, pool_n: int):
@@ -301,7 +351,7 @@ class CoarseMapper:
             n_win = int(self.seg_local_base[-1])
         self.hash_ids = np.arange(plan_num_hash_functions(opts, n_win),
                                   dtype=np.uint32)
-        self._genome_s2 = None
+        self._step2_genome = None
         # dropped-keys mask of the read set (parity mode); None until
         # ensure_read_drops or map_reads sets it
         self.dropped = None
@@ -530,8 +580,8 @@ class CoarseMapper:
         if with_scores:
             t = self.table
             out = (*out, *fused_step2_scores(
-                self.opts, t.chrom_offset, t.chrom_len, self.genome_s2(),
-                read_bases, read_len, out[0]))
+                self.opts, t.chrom_len, self.step2_genome(), read_bases,
+                read_len, out[0]))
         return out
 
     def _run_step(self, bases, lens, valid, with_scores: bool,
@@ -544,7 +594,7 @@ class CoarseMapper:
         with the old one."""
         self.ensure_empty_drops()
         if with_scores:
-            self.genome_s2()
+            self.step2_genome()
         if self._steps_dropped is not self.dropped:
             self._steps.clear()
             self._steps_dropped = self.dropped
@@ -577,7 +627,7 @@ class CoarseMapper:
                              f"cannot run {n_pad} in batches of {bsz}")
         # the batch axis of each output; None: summed over the batches
         axes = ((0, None) + ((0, 0) if collect_candidates else ())
-                + ((1, 0, 0) if with_scores else ()))
+                + (STEP2_AXES if with_scores else ()))
         nb = n_pad // bsz
         outs = None
         for i in range(nb):
@@ -610,7 +660,8 @@ class CoarseMapper:
                                  n_pad: int, bsz: int):
         """_map_reads_device with the fused STEP 2: (packed [n_pad, 7],
         overflow [5], scores [10, 2 n_pad] int16, tb_ops [2 n_pad, E]
-        uint8, tb_status [2 n_pad] int8), on the device."""
+        uint8, tb_status [2 n_pad] int8, *Step2Rows of the n_pad rows), on
+        the device."""
         return self._pool_device(all_bases, all_lens, all_valid, n_pad, bsz,
                                  True, False)
 
@@ -672,12 +723,12 @@ class CoarseMapper:
         out["cuckoo_direct_probe"] = int(self.index.cuckoo_keys is not None)
         return out
 
-    def genome_s2(self) -> torch.Tensor:
-        """The STEP-2 genome codes on the device, staged at first use."""
-        if self._genome_s2 is None:
-            self._genome_s2 = torch.from_numpy(build_genome_s2(
-                self.genome, self.segments, self.opts)).to(self.device)
-        return self._genome_s2
+    def step2_genome(self) -> Step2Genome:
+        """STEP 2's genome on the device, staged at first use."""
+        if self._step2_genome is None:
+            self._step2_genome = build_step2_genome(
+                self.genome, self.opts, self.device, self.segments)
+        return self._step2_genome
 
     def map_reads_packed(self, read_bases: np.ndarray,
                          read_lengths: np.ndarray, with_scores: bool = False,
@@ -685,8 +736,7 @@ class CoarseMapper:
         """The coarse step over all reads with the key drops as they stand
         (map_reads sets them first): (packed [N, 7] int32 rows as
         _map_batch packs them, overflow [5] int64, and with_scores the
-        fused STEP-2 bundle (scores [10, 2N] int16, tb_ops [2N, E] uint8,
-        tb_status [2N] int8), else None), numpy on the host.
+        fused STEP-2 Step2Bundle, else None), numpy on the host.
         collect_candidates sets last_candidates."""
         n = read_bases.shape[0]
         pool_n = self.read_pool_size(n, self.opts.batchsize) if n else 0
@@ -698,23 +748,25 @@ class CoarseMapper:
             with tracing.span("engine.enqueue"):
                 parts.append(self.map_staged(*staged, c1 - c0, with_scores,
                                              collect_candidates))
-        with tracing.span("engine.fetch"):
-            return self.fetch_results(parts, with_scores, collect_candidates)
+        with tracing.span("engine.fetch") as sp:
+            out = self.fetch_results(parts, with_scores, collect_candidates)
+            if sp is not None and with_scores:
+                sp.attrs["step2_row_bytes"] = out[2].rows.nbytes()
+            return out
 
     def map_staged(self, bases, lens, valid, n_pad: int, n: int,
                    with_scores: bool = False,
                    collect_candidates: bool = False):
         """Every batch of a staged pool of n reads (n_pad rows, as
         stage_reads_device returns it), its results left on the device:
-        (packed [n, 7], overflow [5], the bundle (scores [10, 2n], tb_ops
-        [2n, E], tb_status [2n]) or None, (ids, ori) [n, K] or None)."""
+        (packed [n, 7], overflow [5], the Step2Bundle or None, (ids, ori)
+        [n, K] or None)."""
         out = self._pool_device(bases, lens, valid, n_pad,
                                 self.opts.batchsize, with_scores,
                                 collect_candidates)
         bundle = cand = None
         if with_scores:
-            sc, to, ts = out[-3:]
-            bundle = (sc[:, :2 * n], to[:2 * n], ts[:2 * n])
+            bundle = Step2Bundle.from_outputs(out, n)
         if collect_candidates:
             cand = (out[2][:n], out[3][:n])
         return out[0][:n], out[1], bundle, cand
@@ -739,13 +791,20 @@ class CoarseMapper:
         bundle = None
         if with_scores:
             if parts:
-                bundle = tuple(host([p[2][i] for p in parts],
-                                    dim=1 if i == 0 else 0)
-                               for i in range(3))
+                flat = [(*p[2], *p[2].rows) for p in parts]
+                outs = [host([f[i] for f in flat], dim=a)
+                        for i, a in enumerate(STEP2_AXES)]
             else:
-                bundle = (np.zeros((10, 0), np.int16),
-                          np.zeros((0, bandtb.FUSED_ENTRIES), np.uint8),
-                          np.zeros(0, np.int8))
+                lq, ws = self.opts.max_read_length, self.opts.window_size
+                outs = [np.zeros((10, 0), np.int16),
+                        np.zeros((0, bandtb.FUSED_ENTRIES), np.uint8),
+                        np.zeros(0, np.int8), np.zeros((0, lq), np.uint8),
+                        np.zeros((0, lq), np.uint8),
+                        np.zeros((0, ws), np.uint8),
+                        np.zeros((0, ws), np.uint8), np.zeros(0, np.int32),
+                        np.zeros((0, lq), np.int8),
+                        np.zeros((0, ws), np.int8)]
+            bundle = Step2Bundle.from_outputs(outs, len(packed))
         return packed, overflow, bundle
 
     def map_reads(self, read_bases: np.ndarray, read_lengths: np.ndarray,
@@ -753,8 +812,9 @@ class CoarseMapper:
         """Map all reads: [N, L] int8 padded bases, [N] lengths.
 
         with_scores: also run the fused STEP 2 per batch and return
-        (results, (scores [10, 2N] int16, tb_ops [2N, 48] uint8,
-        tb_status [2N] int8)).  collect_candidates: also
+        (results, Step2Bundle: (scores [10, 2N] int16, tb_ops [2N, 48]
+        uint8, tb_status [2N] int8) with the reads' rows).
+        collect_candidates: also
         set last_candidates = (ids [N, K] uint32, SENTINEL where empty;
         ori [N, K] int8), every read's voted candidate windows and the SHD
         orientation of each (eval/window_stats.py reads them)."""

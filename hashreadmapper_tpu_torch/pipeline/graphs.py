@@ -73,14 +73,14 @@ def kernel_wrappers():
     """Every kernel wrapper that counts its launches."""
     from ..ops import (bandtb_kernel as bk, minhash_kernel as mk,
                        pairs_kernel as pk, probe_kernel as prk,
-                       shd_kernel as sk, swdev_kernel as swk,
-                       vote_kernel as vk)
+                       shd_kernel as sk, step2rows_kernel as s2k,
+                       swdev_kernel as swk, vote_kernel as vk)
     return (mk.signature_stage, mk.sigs_from_bases, mk.sig_min_murmur,
             prk.probe_lookup, prk.probe_gather, vk.vote_candidates_fnc,
             pk.pair_select, sk.shd_best, sk.shd_hamming_matrix,
-            sk.shd_pairs_best, pk.read_best, swk.pass_batched,
-            swk.sw_forward, swk.sw_reverse, bk.shift_sub, bk.fill_pass,
-            bk.traceback)
+            sk.shd_pairs_best, pk.read_best, s2k.step2_rows,
+            swk.pass_batched, swk.sw_forward, swk.sw_reverse, bk.shift_sub,
+            bk.fill_pass, bk.traceback)
 
 
 class _Card:

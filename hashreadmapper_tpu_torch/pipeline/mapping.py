@@ -19,15 +19,17 @@ of the QUERY, the "shenanigan" in ssw_cpp.cpp:349-351), the RC window slice,
 the 82-base rescoring horizon with negative bases_left arithmetic, and the
 @PG header line missing its newline.
 
-STEP 2 has one form in the program: the coarse step scores and traces
-back the 3N pairs of every read (query and reverse-complement query
-against the read's 3N window; G->A instead of C->T for a PBAT read in
-FORWARD orientation) on the torch device (engine.fused_step2_scores),
-and run_cssw turns that bundle into MappingRecords, the native bulk
-SAM/VCF emitters' input: the native CIGAR finish (its banded DP for
-every pair whose walk overflowed its entry budget), the rescore and the
-records assembly on the host.  It needs the native library and raises
-without it.
+STEP 2 has one form in the program: the coarse step builds every read's
+rows (the query, its reverse complement, the window and the RC window,
+and their 3N forms: G->A instead of C->T for a PBAT read in FORWARD
+orientation), then scores and traces back its 3N pairs (query and
+reverse-complement query against the read's 3N window) on the torch
+device (engine.fused_step2_scores), and run_cssw turns that bundle into
+MappingRecords, the native bulk SAM/VCF emitters' input: the native
+CIGAR finish (its banded DP for every pair whose walk overflowed its
+entry budget), the rescore and the records assembly on the host, all
+reading the bundle's rows where they lie.  It needs the native library
+and raises without it.
 
 AlignerArguments, the serial host path _run_cssw_host, rescore_alignment,
 print_to_sam and do_vc are copies of the JAX package's host code: the
@@ -255,7 +257,6 @@ def rescore_alignment(aa: AlignerArguments, h: int) -> None:
 
 
 CIGAR_STRIDE = 1024    # bytes per pair in the native finish's raw buffer
-_B4 = np.frombuffer(b"ACGT", dtype=np.uint8)
 _B5 = np.frombuffer(b"ACGTN", dtype=np.uint8)
 _COMPL_U8 = np.arange(256, dtype=np.uint8)
 for _a, _b in zip(b"ACGT", b"TGCA"):
@@ -275,9 +276,10 @@ def run_cssw(genome: Genome, genome_rc: Genome, orientation: np.ndarray,
              reads: ReadStorage, opts: ProgramOptions,
              bs_strand: np.ndarray, bundle) -> MappingRecords:
     """The CSSW mapping stage over all reads (mapping.run_cssw): bundle
-    is the fused coarse step's (scores [10, 2n], tb_ops [2n, E],
-    tb_status [2n]) for these reads (map_reads with_scores); returns
-    MappingRecords."""
+    is the fused coarse step's engine.Step2Bundle for these reads
+    (map_reads with_scores: scores [10, 2n], tb_ops [2n, E], tb_status
+    [2n] and the reads' rows); returns MappingRecords.  genome and
+    genome_rc are the JAX signature's: the windows are the bundle's."""
     if not records_supported():
         raise RuntimeError(
             "device STEP 2 needs the native library's CIGAR finish, "
@@ -286,8 +288,8 @@ def run_cssw(genome: Genome, genome_rc: Genome, orientation: np.ndarray,
     # orientation (mapping.run_cssw)
     bs_strand = ((np.asarray(bs_strand) != 0)
                  & (np.asarray(orientation) == FORWARD)).astype(np.int8)
-    out = _run_cssw_device(genome, genome_rc, orientation, position,
-                           chromosome_id, reads, opts, bs_strand, bundle)
+    out = _run_cssw_device(orientation, position, chromosome_id, reads,
+                           opts, bs_strand, bundle)
     if opts.use_quality_scores and reads.qualities is not None:
         qm = np.zeros((out.n, out.lq), np.uint8)
         for r in range(out.n):
@@ -300,94 +302,58 @@ def run_cssw(genome: Genome, genome_rc: Genome, orientation: np.ndarray,
     return out
 
 
-def _windows(genome, genome_rc, position, chromosome_id, ws):
-    """The window and RC-window slices of every read (mapping.
-    _window_views, batched): (win [n, ws] uint8, win_rc, wlens [n])."""
-    n = len(position)
-    win = np.zeros((n, ws), np.uint8)
-    win_rc = np.zeros((n, ws), np.uint8)
-    wlens = np.zeros(n, np.int64)
-    iw = np.arange(ws, dtype=np.int32)
-    for c in np.unique(chromosome_id):
-        rows = np.nonzero(chromosome_id == c)[0]
-        seq = genome.seqs_ascii[int(c)]
-        seq_rc = genome_rc.seqs_ascii[int(c)]
-        size = len(seq)
-        p = position[rows].astype(np.int32)
-        wl = np.where(p + ws < size, ws, size - p)
-        g = p[:, None] + iw[None, :]
-        v = iw[None, :] < wl[:, None]
-        win[rows] = np.where(v, seq[np.minimum(g, size - 1)], 0)
-        g2 = (size - p - 1).astype(np.int32)[:, None] + iw[None, :]
-        win_rc[rows] = np.where(v & (g2 < size),
-                                seq_rc[np.minimum(g2, size - 1)], 0)
-        wlens[rows] = wl
-    return win, win_rc, wlens
+_ROWS = 1 << 16   # reads a native call takes: its int32 row offsets stay small
 
 
-def _run_cssw_device(genome, genome_rc, orientation, position, chromosome_id,
-                     reads, opts, bs_strand, bundle) -> MappingRecords:
-    """mapping._run_cssw_device in records mode: pair prep on the host,
-    the device's scores and traceback from the fused bundle, native
-    finish and the records assembly on the host."""
-    with tracing.span("step2.prep"):
+def _row_blocks(read_ids: np.ndarray):
+    """(lo, hi, r0) over ascending read indices: entries lo:hi lie in
+    reads r0 .. r0 + _ROWS - 1, the rows a native call is handed."""
+    if not len(read_ids):
+        return []
+    blk = read_ids // _ROWS
+    cut = np.flatnonzero(np.diff(blk)) + 1
+    return [(int(lo), int(hi), int(blk[lo]) * _ROWS)
+            for lo, hi in zip(np.concatenate([[0], cut]),
+                              np.concatenate([cut, [len(read_ids)]]))]
+
+
+def _run_cssw_device(orientation, position, chromosome_id, reads, opts,
+                     bs_strand, bundle) -> MappingRecords:
+    """mapping._run_cssw_device in records mode: the device's scores,
+    traceback and rows from the fused bundle; the native finish and the
+    records assembly on the host, reading the rows where the bundle holds
+    them (the pairs' 3N rows q3 at pair * L, the windows at read * ws)."""
+    rows = bundle.rows
+    with tracing.span("step2.prep") as sp:
         n = reads.num_reads
-        lens = reads.lengths.astype(np.int64)
-        lens32 = lens.astype(np.int32)
-        lq = max(1, reads.max_length)
-        mat = reads.bases_matrix(lq)
-        idx = np.arange(lq, dtype=np.int32)
-        valid = idx[None, :] < lens32[:, None]
-        rev_idx = np.maximum(lens32[:, None] - 1 - idx[None, :], 0)
-        rc_of = lambda a: np.where(
-            valid, 3 - np.take_along_axis(a, rev_idx, 1), 0)
-        # query = read, reverse-complemented in place when orientation is RC
-        fwd_mat = np.where((orientation == REVERSE_COMPLEMENT)[:, None],
-                           rc_of(mat), mat)
-        rcq_mat = rc_of(fwd_mat)
-        ws = opts.window_size
-        win, win_rc, wlens = _windows(genome, genome_rc, position,
-                                      chromosome_id, ws)
-        q_ascii, rcq_ascii = _B4[fwd_mat], _B4[rcq_mat]
-
+        lens32 = reads.lengths.astype(np.int32)
+        lq, ws = rows.q.shape[1], rows.win.shape[1]
         m = np.nonzero(orientation != NONE)[0]
         nm = len(m)
+        if sp is not None:
+            # the mapped reads' rows, all of them the card's
+            sp.attrs.update(card_rows=nm, host_rows=0)
         if nm == 0:
             z32 = lambda k: np.zeros(k, np.int32)
             return MappingRecords(
-                n=n, lq=lq, ws=ws, q=q_ascii, q_len=lens32, win=win,
-                win_len=wlens.astype(np.int32),
-                position=position.astype(np.int64),
+                n=n, lq=lq, ws=ws, q=rows.q, q_len=lens32, win=rows.win,
+                win_len=rows.wlen, position=position.astype(np.int64),
                 chrom=chromosome_id.astype(np.int32),
                 flag0=np.full(n, 0x4, np.int32), flag1=z32(n), sw=z32(2 * n),
                 nb=z32(2 * n), qb=z32(2 * n), conv=z32(2 * n),
                 cig_pool=np.zeros(0, np.uint8),
                 cig_off=np.zeros(2 * n, np.int64), cig_len=z32(2 * n))
-        # pairs [2i] = 3N query, [2i+1] = 3N RC query, same 3N window; reads
-        # with bs_strand = 1 use the mirrored PBAT collapse (G->A)
-        und = bool(bs_strand.any())
-        sc = (bs_strand != 0)[:, None]
-
-        def collapse(a):
-            ct = np.where(a == 1, 3, a)
-            if not und:
-                return ct.astype(np.int8)
-            return np.where(sc, np.where(a == 2, 0, a), ct).astype(np.int8)
+        # the mapped reads' interleaved pairs: [2k] the 3N query and
+        # [2k+1] the 3N RC query of read m[k], both against its 3N window
         P = 2 * nm
-        pair_q = np.empty((P, lq), np.int8)
-        pair_q[0::2] = collapse(fwd_mat)[m]
-        pair_q[1::2] = collapse(rcq_mat)[m]
-        pair_ref = np.repeat(collapse(sw.TRANSLATE[win])[m], 2, axis=0)
-        pair_rl = np.repeat(lens[m], 2).astype(np.int32)
-        pair_fl = np.repeat(wlens[m], 2).astype(np.int32)
-        pair_ml = np.repeat(np.maximum(15, lens[m] // 2), 2).astype(np.int32)
-
-        # the fused coarse step scored every (read x 2) pair: select the
-        # mapped reads' interleaved rows
-        scores, tb_ops, tb_status = bundle
         sel = np.empty(P, np.int64)
         sel[0::2] = 2 * m
         sel[1::2] = 2 * m + 1
+        pair_read = sel // 2
+        pair_rl = lens32[pair_read]
+        pair_fl = rows.wlen[pair_read]
+        pair_ml = np.maximum(15, pair_rl // 2).astype(np.int32)
+        scores, tb_ops, tb_status = bundle
         dev = swdev.unpack_scores(scores[:, sel].astype(np.int32))
         ops_all = tb_ops[sel].astype(np.int16)
         fail_all = tb_status[sel].astype(np.int8)
@@ -397,7 +363,6 @@ def _run_cssw_device(genome, genome_rc, orientation, position, chromosome_id,
     fb = dev["host_fallback"]
     dg = dev["degenerate"] & ~fb
     fin = np.nonzero(~fb & ~dg)[0]
-    nf = len(fin)
     cl_all = np.zeros(P, np.int32)
     flags_all = np.zeros(P, np.int32)
     raw_chunks = []
@@ -411,26 +376,24 @@ def _run_cssw_device(genome, genome_rc, orientation, position, chromosome_id,
         counts = dict(pairs=P, host_dp_pairs=int(np.count_nonzero(fb))
                       + int(np.count_nonzero(~dev["diag"][fin] & ~walked)))
     with tracing.span("step2.finish", **counts):
-        if nf:
+        for lo, hi, r0 in _row_blocks(pair_read[fin]):
+            f = fin[lo:hi]
             raw_b, clens, _mism, flags = native.ssw_finish_batch(
-                pair_q[fin].tobytes(), np.arange(nf, dtype=np.int64) * lq,
-                pair_rl[fin], pair_ref[fin].tobytes(),
-                np.arange(nf, dtype=np.int64) * ws, pair_fl[fin],
-                dev["score1"][fin], dev["ref_begin"][fin],
-                dev["ref_end"][fin], dev["query_begin"][fin],
-                dev["query_end"][fin], dev["flag"][fin],
-                threads=max(1, opts.threads), codes=True,
-                diag=dev["diag"][fin], raw=True, cigar_stride=CIGAR_STRIDE,
-                dev_ops=ops_all[fin], dev_fail=fail_all[fin])
-            cl_all[fin] = clens
-            flags_all[fin] = flags
-            raw_chunks.append((fin, raw_b, clens))
+                rows.q3[2 * r0:], (sel[f] - 2 * r0) * lq, pair_rl[f],
+                rows.win3[r0:], (pair_read[f] - r0) * ws, pair_fl[f],
+                dev["score1"][f], dev["ref_begin"][f], dev["ref_end"][f],
+                dev["query_begin"][f], dev["query_end"][f], dev["flag"][f],
+                threads=max(1, opts.threads), codes=True, diag=dev["diag"][f],
+                raw=True, cigar_stride=CIGAR_STRIDE, dev_ops=ops_all[f],
+                dev_fail=fail_all[f])
+            cl_all[f] = clens
+            flags_all[f] = flags
+            raw_chunks.append((f, raw_b, clens))
     with tracing.span("step2.assemble"):
         return _assemble_records(
-            n, lq, ws, nm, m, orientation, position, chromosome_id, lens,
-            lens32, wlens, win, win_rc, q_ascii, rcq_ascii, pair_q, pair_ref,
-            pair_rl, pair_fl, pair_ml, dev, fb, dg, cl_all, flags_all,
-            raw_chunks, CIGAR_STRIDE, bs_strand, und, opts)
+            n, nm, m, orientation, position, chromosome_id, lens32, rows,
+            sel, pair_rl, pair_fl, pair_ml, dev, fb, dg, cl_all, flags_all,
+            raw_chunks, CIGAR_STRIDE, bs_strand, opts)
 
 
 def _run_cssw_host(genome: Genome, genome_rc: Genome,
@@ -512,15 +475,15 @@ def _run_cssw_host(genome: Genome, genome_rc: Genome,
         rescore_alignment(aa, 1)
     return out
 
-def _assemble_records(n, lq, ws, nm, m, orientation, position, chromosome_id,
-                      lens, lens32, wlens, win, win_rc, q_ascii, rcq_ascii,
-                      pair_q, pair_ref, pair_rl, pair_fl, pair_ml,
-                      dev, fb, dg, cl_all, flags_all, raw_chunks, stride,
-                      bs_strand, und, opts):
+def _assemble_records(n, nm, m, orientation, position, chromosome_id,
+                      lens32, rows, sel, pair_rl, pair_fl, pair_ml, dev, fb,
+                      dg, cl_all, flags_all, raw_chunks, stride, bs_strand,
+                      opts):
     """Records-mode tail of _run_cssw_device: patch degenerate/fallback
     pairs, pool the CIGAR bytes, rescore natively in place, and scatter
     the per-pair arrays into the [2n] MappingRecords layout."""
     P = 2 * nm
+    lq, ws = rows.q.shape[1], rows.win.shape[1]
     sw_pairs = np.ascontiguousarray(dev["score1"], np.int32)
     nb_pairs = np.ascontiguousarray(dev["score2"], np.int32)
     qb_pairs = np.ascontiguousarray(dev["query_begin"], np.int32).copy()
@@ -528,8 +491,9 @@ def _assemble_records(n, lq, ws, nm, m, orientation, position, chromosome_id,
     fb_cigs = {}
     for pi in np.nonzero(fb)[0]:
         # byte saturation -> host word-mode rerun (align/sw.py:379-388)
-        q = _B5[pair_q[pi, :pair_rl[pi]]].tobytes().decode("latin1")
-        w = _B5[pair_ref[pi, :pair_fl[pi]]].tobytes().decode("latin1")
+        q = _B5[rows.q3[sel[pi], :pair_rl[pi]]].tobytes().decode("latin1")
+        w = _B5[rows.win3[sel[pi] // 2, :pair_fl[pi]]].tobytes().decode(
+            "latin1")
         al = sw.ssw_align(q, w, int(pair_ml[pi]))
         sw_pairs[pi] = al.sw_score
         nb_pairs[pi] = al.sw_score_next_best
@@ -563,62 +527,54 @@ def _assemble_records(n, lq, ws, nm, m, orientation, position, chromosome_id,
     # native batched rescoring (comparefk, mappinghandler.cu:747-766):
     # alignment h=0 rescored against rc_query, h=1 against query (the
     # reference's `if (!h)` swap); adjusts sw/nb in place, emits conv
-    qa = np.empty((P, lq), np.uint8)
-    qa[0::2] = rcq_ascii[m]
-    qa[1::2] = q_ascii[m]
-    qa_len = np.repeat(lens[m], 2).astype(np.int32)
-    ref_rows = np.repeat(win[m], 2, axis=0)
-    rcref_rows = np.repeat(win_rc[m], 2, axis=0)
-    if und:
+    q_rows, rcq_rows, win_rows, rc_rows = rows.q, rows.rcq, rows.win, \
+        rows.win_rc
+    mirrored = bs_strand != 0
+    if mirrored.any():
         # mirrored PBAT rescore via the complement trick (rescore_alignment)
-        sp = np.repeat((bs_strand[m] != 0), 2)[:, None]
-        qa = np.where(sp, _COMPL_U8[qa], qa)
-        ref_rows = np.where(sp, _COMPL_U8[ref_rows], ref_rows)
-        rcref_rows = np.where(sp, _COMPL_U8[rcref_rows], rcref_rows)
-    wl2 = np.repeat(wlens[m], 2).astype(np.int32)
-    block = 1 << 17   # keeps int32 pool offsets safe
+        def complemented(a):
+            a = a.copy()
+            a[mirrored] = _COMPL_U8[a[mirrored]]
+            return a
+        q_rows, rcq_rows, win_rows, rc_rows = map(
+            complemented, (q_rows, rcq_rows, win_rows, rc_rows))
     conv = np.empty(P, np.int32)
     with tracing.span("step2.rescore"):
-        for b0 in range(0, P, block):
-            b1 = min(b0 + block, P)
-            nb_ = b1 - b0
-            pool_b = pool[int(cig_off[b0]):
-                          int(cig_off[b1 - 1]) + int(cl_all[b1 - 1])
-                          ].tobytes()
-            conv[b0:b1] = native.rescore_batch(
-                qa[b0:b1].tobytes(),
-                np.arange(nb_, dtype=np.int64) * lq, qa_len[b0:b1],
-                ref_rows[b0:b1].tobytes(),
-                np.arange(nb_, dtype=np.int64) * ws, wl2[b0:b1],
-                rcref_rows[b0:b1].tobytes(),
-                np.arange(nb_, dtype=np.int64) * ws, wl2[b0:b1],
-                pool_b, cig_off[b0:b1] - cig_off[b0], cl_all[b0:b1],
-                sw_pairs[b0:b1], nb_pairs[b0:b1],
-                threads=max(1, opts.threads))
+        for lo, hi, r0 in _row_blocks(m):
+            k = m[lo:hi]
+            q_off, w_off = (k - r0) * lq, (k - r0) * ws
+            wl = rows.wlen[k]
+            c0 = int(cig_off[2 * lo])
+            c1 = int(cig_off[2 * hi - 1]) + int(cl_all[2 * hi - 1])
+            for h, query in ((0, rcq_rows), (1, q_rows)):
+                idx = np.arange(2 * lo + h, 2 * hi, 2)
+                sw_h, nb_h = sw_pairs[idx], nb_pairs[idx]
+                conv[idx] = native.rescore_batch(
+                    query[r0:], q_off, lens32[k], win_rows[r0:], w_off, wl,
+                    rc_rows[r0:], w_off, wl, pool[c0:c1], cig_off[idx] - c0,
+                    cl_all[idx], sw_h, nb_h, threads=max(1, opts.threads))
+                sw_pairs[idx] = sw_h
+                nb_pairs[idx] = nb_h
 
     # scatter per-pair arrays ([P] over mapped reads) into [2n]
-    idx2 = np.empty(P, np.int64)
-    idx2[0::2] = 2 * m
-    idx2[1::2] = 2 * m + 1
     n2 = 2 * n
     z32 = lambda: np.zeros(n2, np.int32)
     sw2, nb2, qb2, conv2, cl2 = z32(), z32(), z32(), z32(), z32()
     co2 = np.zeros(n2, np.int64)
-    sw2[idx2] = sw_pairs
-    nb2[idx2] = nb_pairs
-    qb2[idx2] = qb_pairs
-    conv2[idx2] = conv
-    cl2[idx2] = cl_all
-    co2[idx2] = cig_off
+    sw2[sel] = sw_pairs
+    nb2[sel] = nb_pairs
+    qb2[sel] = qb_pairs
+    conv2[sel] = conv
+    cl2[sel] = cl_all
+    co2[sel] = cig_off
     flag0 = np.zeros(n, np.int32)
     flag1 = np.zeros(n, np.int32)
     flag0[m] = flags_all[0::2]
     flag1[m] = flags_all[1::2]
     flag0[orientation == NONE] = 0x4
     return MappingRecords(
-        n=n, lq=lq, ws=ws, q=q_ascii, q_len=lens32.astype(np.int32),
-        win=win, win_len=wlens.astype(np.int32),
-        position=position.astype(np.int64),
+        n=n, lq=lq, ws=ws, q=rows.q, q_len=lens32, win=rows.win,
+        win_len=rows.wlen, position=position.astype(np.int64),
         chrom=chromosome_id.astype(np.int32),
         flag0=flag0, flag1=flag1, sw=sw2, nb=nb2, qb=qb2, conv=conv2,
         cig_pool=pool, cig_off=co2, cig_len=cl2)

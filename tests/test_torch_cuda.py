@@ -21,7 +21,7 @@ from hashreadmapper_tpu_torch.ops import swdev
 from hashreadmapper_tpu_torch.ops import swdev_kernel as swk
 from hashreadmapper_tpu_torch.ops import vote_kernel as vk
 
-from torch_helpers import shd_pairs_case
+from torch_helpers import shd_pairs_case, step2_rows_case
 
 pytestmark = pytest.mark.cuda
 
@@ -439,7 +439,7 @@ def test_coarse_and_fused_step2_card_equals_cpu_in_the_new_modes(dev, mode):
               "global_window_id", "bs_strand"):
         np.testing.assert_array_equal(getattr(rc_, f), getattr(rh, f), f)
     assert rc_.stats == rh.stats
-    for c, h in zip(bc, bh):
+    for c, h in zip((*bc, *bc.rows), (*bh, *bh.rows)):
         np.testing.assert_array_equal(c, h)
     assert (rh.orientation != 3).mean() > 0.4
     if mode == "undirectional":
@@ -502,7 +502,7 @@ def test_regions_with_scores_card_equals_cpu(dev):
     for f in RESULT_FIELDS + ("global_window_id64",):
         np.testing.assert_array_equal(getattr(rc_, f), getattr(rh, f), f)
     assert rc_.stats == rh.stats and rc_.stats["cuckoo_direct_probe"] == 0
-    for c, h in zip(bc, bh):
+    for c, h in zip((*bc, *bc.rows), (*bh, *bh.rows)):
         np.testing.assert_array_equal(c, h)
     single = CoarseMapper(genome, opts, dev).map_reads(reads, lengths)
     for f in RESULT_FIELDS:
@@ -531,7 +531,7 @@ def test_mesh_with_scores_card_equals_cpu(dev, mode):
         np.testing.assert_array_equal(getattr(rc_, f), getattr(rh, f), f)
     assert rc_.stats == rh.stats
     assert not any(rc_.stats[k] for k in OVERFLOW_KEYS)
-    for c, h in zip(bc, bh):
+    for c, h in zip((*bc, *bc.rows), (*bh, *bh.rows)):
         np.testing.assert_array_equal(c, h)
     single = CoarseMapper(genome, opts, dev).map_reads(reads, lengths)
     for f in RESULT_FIELDS:
@@ -550,9 +550,9 @@ def _eager_pool(mapper, staged, with_scores):
     out = [torch.cat([p[0] for p in parts]),
            torch.stack([p[1] for p in parts]).sum(dim=0)]
     if with_scores:
-        out += [torch.cat([p[2] for p in parts], dim=1),
-                torch.cat([p[3] for p in parts]),
-                torch.cat([p[4] for p in parts])]
+        out += [torch.cat([p[2] for p in parts], dim=1)]
+        out += [torch.cat([p[i] for p in parts])
+                for i in range(3, len(parts[0]))]
     return out
 
 
@@ -598,7 +598,8 @@ def _mesh_eager_pool(mapper, staged):
     return [torch.cat([p[0] for p in parts]),
             torch.stack([p[1] for p in parts]).sum(dim=0),
             torch.cat([p[2] for p in parts], dim=1),
-            torch.cat([p[3] for p in parts]), torch.cat([p[4] for p in parts])]
+            *(torch.cat([p[i] for p in parts])
+              for i in range(3, len(parts[0])))]
 
 
 @pytest.mark.parametrize("mode", ["parity", "threeN", "undirectional"])
@@ -664,7 +665,8 @@ def test_two_regions_on_one_card_graph_equals_eager(dev, monkeypatch):
             np.testing.assert_array_equal(getattr(got[0], f),
                                           getattr(other[0], f), f)
         assert got[0].stats == other[0].stats
-        for g, o in zip(got[1], other[1]):
+        for g, o in zip((*got[1], *got[1].rows),
+                        (*other[1], *other[1].rows)):
             np.testing.assert_array_equal(g, o)
 
 
@@ -740,7 +742,7 @@ def test_kernels_launch_on_the_card_of_their_inputs(dev, monkeypatch):
     (rc_, bc), (rh, bh) = outs
     for f in RESULT_FIELDS:
         np.testing.assert_array_equal(getattr(rc_, f), getattr(rh, f), f)
-    for c, h in zip(bc, bh):
+    for c, h in zip((*bc, *bc.rows), (*bh, *bh.rows)):
         np.testing.assert_array_equal(c, h)
 
 
@@ -1361,6 +1363,48 @@ def _pair_inputs(dev, seed, n_reads=300, kcap=8, n_win=900):
                 win_chrom=t(win_chrom), chrom_offset=t(offs),
                 chrom_len=t(np.array(lens_c, np.int64)), g_hi=g_hi.to(dev),
                 g_lo=g_lo.to(dev), ws=ws)
+
+
+@pytest.mark.parametrize("undirectional", [False, True],
+                         ids=["directional", "undirectional"])
+@pytest.mark.parametrize("lq,ws", [(72, 64), (33, 128), (128, 128),
+                                   (300, 256)])
+def test_step2_rows_kernel_equals_plain(dev, lq, ws, undirectional):
+    """torch_helpers.step2_rows_case (a window cut by the chromosome's end,
+    a read at position 5, N and IUPAC letters, RC, a mirrored PBAT read,
+    unmapped and padding rows; 100 reads, no multiple of a block's 32;
+    (300, 256) takes over 48 KB of shared memory): every output, card ==
+    plain, in one launch."""
+    from hashreadmapper_tpu_torch.config import ProgramOptions
+    from hashreadmapper_tpu_torch.ops import step2rows_kernel as s2k
+    from hashreadmapper_tpu_torch.pipeline.engine import build_step2_genome
+    genome, bases, lens, packed = step2_rows_case(lq + ws, lq, ws)
+    opts = ProgramOptions(window_size=ws, max_read_length=lq)
+    chrom_len = torch.tensor([genome.chromosome_length(c) for c in (0, 1)])
+    outs = []
+    for d in (dev, "cpu"):
+        s2 = build_step2_genome(genome, opts, d)
+        args = [torch.from_numpy(x).to(d) for x in (bases, lens, packed)]
+        args += [s2.offset, chrom_len.to(d), s2.letters, s2.translate,
+                 s2.complement, ws, undirectional]
+        outs.append(_launched_once(s2k.step2_rows,
+                                   lambda a=args: s2k.step2_rows(*a))
+                    if d == dev else s2k.step2_rows(*args))
+    for name, c, h in zip(("pair_q_t", "pair_ref_t", "q", "rcq", "win",
+                           "win_rc", "wlen", "q3", "win3"), *outs):
+        assert c.dtype == h.dtype and torch.equal(c.cpu(), h), name
+
+
+def test_step2_rows_kernel_refuses_what_it_cannot_take(dev):
+    from hashreadmapper_tpu_torch.ops import step2rows_kernel as s2k
+    z = lambda *shape: torch.zeros(shape, dtype=torch.int64, device=dev)
+    bases = torch.zeros((4, 8), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="packed"):
+        s2k.step2_rows(bases, z(4), z(4, 6), z(1), z(1), z(9), z(256),
+                       z(256), 16, False)
+    with pytest.raises(ValueError, match="no chromosomes"):
+        s2k.step2_rows(bases, z(4), z(4, 7), z(0), z(0), z(9), z(256),
+                       z(256), 16, False)
 
 
 @pytest.mark.parametrize("budget,undirectional", [

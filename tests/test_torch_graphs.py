@@ -21,7 +21,7 @@ from hashreadmapper_tpu.pipeline.window_stream import \
 from hashreadmapper_tpu_torch.config import ProgramOptions
 from hashreadmapper_tpu_torch.io.genome import Genome
 from hashreadmapper_tpu_torch.pipeline import graphs
-from hashreadmapper_tpu_torch.pipeline.engine import CoarseMapper
+from hashreadmapper_tpu_torch.pipeline.engine import CoarseMapper, Step2Rows
 from hashreadmapper_tpu_torch.pipeline.window_stream import WindowStreamMapper
 
 from torch_helpers import ACGT, ensure_reference_native, four_strand_reads
@@ -113,12 +113,14 @@ def mapped(request):
 def test_pool_units_equal_jax(mapped, unit):
     """map_pool_scanned and _map_reads_device: packed [n_pad, 7] rows and
     the [5] overflow vector; _map_reads_device_scored also the 10 score
-    rows, the traceback entries and the status; _map_batch_at one batch
-    (the second of the pool: its rows, and under --undirectional its
-    overflow against JAX's _map_batch_at)."""
+    rows, the traceback entries and the status, and after them the
+    port's STEP-2 rows; _map_batch_at one batch (the second of the pool:
+    its rows, and under --undirectional its overflow against JAX's
+    _map_batch_at)."""
     mode, jax_out, out, _, _ = mapped
     if unit != "batch_at":
-        assert len(out[unit]) == len(jax_out[unit])
+        assert len(out[unit]) == len(jax_out[unit]) + (
+            len(Step2Rows._fields) if unit == "scored" else 0)
     for got, want in zip(out[unit], jax_out[unit]):
         assert got.shape == want.shape
         np.testing.assert_array_equal(got, want.astype(got.dtype))

@@ -13,7 +13,8 @@ from hashreadmapper_tpu_torch import native
 from hashreadmapper_tpu_torch.pipeline import driver
 from hashreadmapper_tpu_torch.pipeline import mapping as tmapping
 from hashreadmapper_tpu_torch.pipeline.engine import (OVERFLOW_KEYS,
-                                                     CoarseMapper)
+                                                     CoarseMapper,
+                                                     Step2Bundle)
 from hashreadmapper_tpu_torch.pipeline.records import MappingRecords, emit_sam
 
 from hashreadmapper_tpu.config import ProgramOptions
@@ -139,7 +140,8 @@ def test_device_step2_equals_the_host_path(case, branch, monkeypatch,
     else:
         if branch == "overflowed":
             scores, ops, status = bundle
-            bundle = (scores, np.zeros_like(ops), np.full_like(status, 2))
+            bundle = Step2Bundle(scores, np.zeros_like(ops),
+                                 np.full_like(status, 2), bundle.rows)
         rec = tmapping.run_cssw(*args, bundle)
     assert isinstance(rec, MappingRecords)
     assert _fields(rec.to_aas()) == _fields(host)

@@ -17,7 +17,7 @@ from hashreadmapper_tpu_torch.config import ProgramOptions
 from hashreadmapper_tpu_torch.io.genome import Genome
 from hashreadmapper_tpu_torch.io.readstore import ReadStorage, pack_rows
 from hashreadmapper_tpu_torch.pipeline import driver
-from hashreadmapper_tpu_torch.pipeline.engine import CoarseMapper
+from hashreadmapper_tpu_torch.pipeline.engine import CoarseMapper, Step2Bundle
 from hashreadmapper_tpu_torch.utils import tracing
 from hashreadmapper_tpu_torch.utils.timers import PhaseTimers
 
@@ -166,11 +166,12 @@ class _HostDpMapper:
         self._mapper = mapper
 
     def map_reads(self, *args, **kwargs):
-        res, (scores, ops, status) = self._mapper.map_reads(*args, **kwargs)
+        res, bundle = self._mapper.map_reads(*args, **kwargs)
+        scores, ops, status = bundle
         scores, status = scores.copy(), status.copy()
         scores[8, ::11] = 1
         status[::5] = 2
-        return res, (scores, ops, status)
+        return res, Step2Bundle(scores, ops, status, bundle.rows)
 
     def __getattr__(self, attr):
         return getattr(self._mapper, attr)
@@ -181,8 +182,10 @@ def test_pipelined_sw_spans(tracer, monkeypatch):
     is the parent of one step2.chunk on a step2 worker, which holds
     step2.prep, step2.finish and step2.assemble (with step2.rescore);
     host_dp_pairs counts the saturated pairs' reruns and the native
-    finish's pairs of status 2 that are not diagonal; the index build's
-    phases lie inside index.build."""
+    finish's pairs of status 2 that are not diagonal; step2.prep's rows
+    are the card's for every mapped read (card_rows) and the host's for
+    none (host_rows), engine.fetch counts the rows' bytes; the index
+    build's phases lie inside index.build."""
     if not native.available():
         pytest.skip("the port's native library did not build")
     genome, opts, store, padded = _case()
@@ -233,6 +236,12 @@ def test_pipelined_sw_spans(tracer, monkeypatch):
         assert [k.name for k in sorted(kids[engine[0].id],
                                        key=lambda k: k.t0_ns)] \
             == ["engine.stage", "engine.enqueue", "engine.fetch"]
+        prep = got["step2.prep"].attrs
+        assert prep == {"card_rows": engine[0].attrs["mapped"],
+                        "host_rows": 0} and prep["card_rows"] > 0
+        (fetch,) = [k for k in kids[engine[0].id] if k.name == "engine.fetch"]
+        lq, ws = opts.max_read_length, opts.window_size
+        assert fetch.attrs["step2_row_bytes"] == 32 * (4 * lq + 3 * ws + 4)
     assert host_dp == len(reruns) + sum(finished) > 0
     assert len(reruns) > 0 and sum(finished) > 0
     (wait,) = [s for s in spans if s.name == "driver.wait"]

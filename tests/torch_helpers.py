@@ -181,3 +181,45 @@ def shd_pairs_case(seed, mode, n_reads=48, width=40, p=160, ws=64,
                 ridx=ridx.astype(np.int64), gstart=loc.start.numpy(),
                 alen=loc.length.numpy(), aleft=loc.left.numpy(), valid=valid,
                 ws=ws, max_pct=max_pct)
+
+
+def step2_rows_case(seed, lq=72, ws=64, n_random=90):
+    """A batch for ops/step2rows_kernel.py::step2_rows: (genome, read codes
+    [B, lq] int8, lengths [B] int32, packed [B, 7] int32 coarse rows).
+    Chromosome cA (3,000 bases) holds N and IUPAC letters (R, Y, K) in
+    the window at 1,000; cB (300 bases) cuts a window at its end.  The
+    first rows: a window cut by cB's end (wlen 50); a read at position 5
+    in RC orientation (the RC window clipped at the chromosome's start);
+    the N and IUPAC window; RC orientation; a mirrored PBAT read (strand
+    1, FORWARD) and one in RC orientation (strand 1, no G->A); an
+    unmapped read and a padding row (chromosome 0, position 0, the
+    padding of length 0); reads of length lq and 1; then n_random reads
+    at random positions, orientations and strands.  Codes past a read's
+    length are random (a forward query keeps them)."""
+    from hashreadmapper_tpu_torch.io.genome import Genome
+    rng = np.random.default_rng(seed)
+    ca = rng.choice(list("ACGT"), 3000)
+    ca[[1005, 1010, 1011, 1030]] = ["N", "R", "Y", "K"]
+    ca[rng.integers(0, 3000, size=20)] = "N"
+    cb = rng.choice(list("ACGT"), 300)
+    genome = Genome(["cA", "cB"], ["".join(ca), "".join(cb).lower()])
+    # (orientation, chromosome, position, strand, length)
+    fixed = [(1, 1, 250, 0, 60), (2, 0, 5, 0, 70), (1, 0, 1000, 0, 70),
+             (2, 0, 2000, 0, 70), (1, 0, 2500, 1, 70), (2, 0, 2600, 1, 70),
+             (3, 0, 0, 0, 70), (3, 0, 0, 0, 0), (1, 0, 40, 0, lq),
+             (2, 1, 10, 1, 1)]
+    n = len(fixed) + n_random
+    ori = rng.integers(1, 3, size=n)
+    chrom = rng.integers(0, 2, size=n)
+    pos = np.where(chrom == 0, rng.integers(0, 3000, size=n),
+                   rng.integers(0, 300, size=n))
+    strand = rng.integers(0, 2, size=n)
+    lens = rng.integers(1, lq + 1, size=n)
+    for i, row in enumerate(fixed):
+        ori[i], chrom[i], pos[i], strand[i], lens[i] = row
+    lens = np.minimum(lens, lq)
+    packed = np.zeros((n, 7), np.int32)
+    packed[:, 0], packed[:, 3], packed[:, 4], packed[:, 6] = (
+        ori, chrom, pos, strand)
+    bases = rng.integers(0, 4, size=(n, lq), dtype=np.int8)
+    return genome, bases, lens.astype(np.int32), packed
